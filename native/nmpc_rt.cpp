@@ -1,4 +1,4 @@
-// nmpc_rt — native host runtime for the TPU NMPC engine.
+// nmpc_rt — native host runtime for the NMPC engine.
 //
 // Replaces the reference's ROS1/rospy layer (SURVEY.md §1 L1, §5.8):
 //   * rospy.Subscriber callbacks mutating Python globals  -> a seqlock-latched

@@ -1,6 +1,6 @@
-"""nmpc_tpu — a TPU-native nonlinear MPC engine for multi-robot navigation.
+"""nmpc_tpu — a nonlinear MPC engine for multi-robot navigation in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 `asalimil/Nonlinear-MPC-for-collision-free-and-deadlock-free-navigation-of-
 multiple-nonholonomic-mobile-robots` (Lafmejani & Berman, RAS 141:103774, 2021):
 multiple-shooting NMPC for 1..10 unicycle robots with pairwise collision
@@ -12,7 +12,7 @@ Layer map (mirrors SURVEY.md §1/§7):
     models/    L0: unicycle dynamics, stacked multi-robot, LiDAR-augmented model
     ocp/       L2: OCP pytree, costs, inequality constraints, transcription
     solver/    L3: AL-iLQR + condensed Gauss-Newton NLP solvers (IPOPT repl.)
-    ops/       structured linear algebra + Pallas kernels (MUMPS/KKT repl.)
+    ops/       structured linear algebra (MUMPS/KKT repl.)
     mpc/       L4: receding-horizon driver, warm-start shift, waypoints
     sim/       plant simulator (Gazebo replacement), SE(2) frames, LiDAR model
     parallel/  vmap/pjit scenario batching, mesh, decentralized ppermute mode
@@ -25,11 +25,11 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# The TPU default matmul precision is bfloat16; a Riccati recursion iterated
-# through bf16 products diverges (verified: the six-robot closed loop
-# explodes on-device while bit-identical code is fine on CPU). The numerical
-# engine requires true f32 contractions; the hot batched path is unaffected
-# (its Pallas kernels compute exact f32 on the VPU).
+# Every float32 contraction runs in true float32. A Riccati recursion
+# iterated through reduced-precision products (TF32 on the GPU's tensor
+# cores keeps about three decimal digits) diverges; a six-robot closed loop
+# run through bf16 products was seen to explode where the same code in f32
+# is fine.
 _jax.config.update("jax_default_matmul_precision", "float32")
 
 from nmpc_tpu.ocp.problem import OCP, default_weights  # noqa: F401

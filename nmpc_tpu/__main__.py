@@ -138,12 +138,9 @@ def cmd_run(args) -> int:
         if sc.Nc is not None and sc.num_rays == 0:
             engine = "gn"     # scenario prescribes a control horizon
         else:
-            from nmpc_tpu.ops.rollout_pallas import supports
-
-            # fused megakernel wins at long horizons (sequential-chain bound);
-            # measured on v5e: N=200 26.5 vs 44.7 ms p50, N=100 28.6 vs 33.6,
-            # but N=35 favors the per-scenario XLA path (early-exit loops)
-            engine = "fused" if supports(ocp) and ocp.N >= 64 else "ilqr"
+            # batch-native engine at long horizons, per-scenario engine
+            # below; the N >= 64 crossover is provisional (ROADMAP)
+            engine = "fused" if ocp.N >= 64 else "ilqr"
     if engine == "gn":
         from nmpc_tpu.solver import gn
 
@@ -152,7 +149,7 @@ def cmd_run(args) -> int:
         gcfg = gn.GNConfig(Nc=sc.Nc or ocp.N, n_gn=20, n_outer=8, normal="dense")
         solve_fn = lambda o, w: gn.solve(o, w, gcfg)
     elif engine == "fused":
-        # batch-native megakernel at B=1: the low-latency per-step engine
+        # batch-native engine at B=1
         from nmpc_tpu.solver.alilqr_batched import solve_one
 
         solve_fn = lambda o, w: solve_one(o, w, solver_cfg)
@@ -166,8 +163,8 @@ def cmd_run(args) -> int:
         # deployment recipe: one full-strength seed solve, then the cheap
         # 3x10 rt config each period with carried mu (driver.rt_closed_loop
         # defaults — the pinned-safe recipe). This path drives the
-        # per-scenario XLA engine, whose line search is the alpha cascade;
-        # adaptive LS is a megakernel-path option (solve_fn=solve_one)
+        # per-scenario engine, whose line search is the alpha cascade;
+        # adaptive LS is a batch-native engine option (solve_fn=solve_one)
         mpc = MPCConfig(max_steps=args.steps, stop_tol=sc.stop_tol, escape=True)
         # rt mode drives the per-scenario AL-iLQR engine: the rt_cfg budget
         # is what defines the mode, so an engine override would bypass it
@@ -218,11 +215,14 @@ def main(argv=None) -> int:
                            "converged rounds per period (consensus)")
     runp.add_argument("--engine", choices=("auto", "ilqr", "fused", "gn"),
                       default="auto",
-                      help="NLP engine: per-scenario AL-iLQR, batch-native "
-                           "fused megakernel at B=1 (lowest warm latency), or "
+                      help="NLP engine: per-scenario AL-iLQR, the "
+                           "batch-native AL-iLQR engine at B=1, or "
                            "condensed Gauss-Newton with move blocking")
     sub.add_parser("bench")
     args = p.parse_args(argv)
+    from nmpc_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     if args.cmd == "list":
         return cmd_list()
     if args.cmd == "bench":

@@ -10,9 +10,9 @@ Reference parity:
     same file :248-252
   - RK4 variant: /root/reference/AllScripts/mpc_pose_control_casadi.py:43-59
 
-TPU-first notes: everything is shape-static and vectorized over the robot axis
-via reshape to [m, 3]/[m, 2] — no per-robot Python loops, so a single fused
-VPU-friendly elementwise kernel regardless of m. Analytic Jacobians of the
+Accelerator notes: everything is shape-static and vectorized over the robot
+axis via reshape to [m, 3]/[m, 2] — no per-robot Python loops, so a single
+fused elementwise kernel regardless of m. Analytic Jacobians of the
 Euler map are provided so the solver's linearization stage needs no AD and
 fuses into the batched backward pass.
 """

@@ -103,8 +103,8 @@ class MPCConfig:
     # delay). delay=1 reproduces the reference's actual timing: the control
     # applied over period k is the one computed from the measurement at
     # period k-1 (one full control period of actuation delay — an upper
-    # bound on the real solve latency, since every budget is met with
-    # headroom, docs/LATENCY.md).
+    # bound on the real solve latency wherever the solve fits inside one
+    # period).
     delay: int = 0
     # Delay compensation (only meaningful with delay=1): predict the latched
     # measurement one period forward under the KNOWN in-flight control
@@ -182,8 +182,8 @@ def steady_warm(res: SolveResult, lam_decay: float = 1.0) -> WarmStart:
     (optionally decayed) multipliers, AND the penalty weight mu they were
     learned at.
 
-    Carrying lam while resetting mu is what made rt mode blow up (STATUS.md
-    round-1 finding): the PHR activation band is c < lam/mu, so multipliers
+    Carrying lam while resetting mu is what made rt mode blow up (an early
+    finding): the PHR activation band is c < lam/mu, so multipliers
     built at mu=1e4 re-applied at mu=10 exert their full outward force until
     c > lam/10 — an enormous unconditional push on well-satisfied
     constraints that flings the iterate into box-bound violation (measured on
@@ -543,10 +543,9 @@ def closed_loop(
 
 def rt_closed_loop(
     ocp: OCP,
-    # The mu_init=100 seed lever (round-4/5 measurements) is deliberately
-    # NOT the default. Measured both ways on v5e (round 5): seeding the rt
-    # chain at mu_init=100 cuts the headline six-robot per-step p99 7.11 ->
-    # 4.52 ms and iters/step -14% at unchanged realized clearance — but the
+    # The mu_init=100 seed lever is deliberately NOT the default: seeding
+    # the rt chain at mu_init=100 cuts the headline six-robot iters/step
+    # by 14% at unchanged realized clearance — but the
     # stiffer seed's carried duals STALL ARRIVAL on harder maneuvers
     # (six_robot_impl hexagon: reached 72 steps at mu10 vs hung at err 1.36
     # by 120 steps at mu100; eight-robot N=25 swap: 227 steps vs hung at
@@ -554,13 +553,12 @@ def rt_closed_loop(
     # by passing full_cfg=ALILQRConfig(n_outer=6, n_inner=12, mu_init=100)
     # after validating arrival on the target scenario.
     full_cfg: ALILQRConfig = ALILQRConfig(n_outer=6, n_inner=12),
-    # the pinned deployment recipe (tests/test_rt_mode.py, docs/LATENCY.md):
-    # 3x10 carried-mu solves. This loop drives the per-scenario XLA engine,
-    # whose line search is the alpha cascade (cfg.ls is consumed only by
-    # the megakernel paths); the adaptive-LS rt variant is available by
-    # passing solve_fn=solve_one with ls='adaptive' and is measured at B=1
-    # in docs/LATENCY.md (faster on the headline shape, slower where the
-    # cascade exits after ~1 iteration)
+    # the pinned deployment recipe (tests/test_rt_mode.py): 3x10 carried-mu
+    # solves. This loop drives the per-scenario engine, whose line search
+    # is the alpha cascade (cfg.ls is consumed only by the batch-native
+    # engine); the adaptive-LS rt variant is available by passing
+    # solve_fn=solve_one with ls='adaptive' (tools/gen_latency.py measures
+    # it at B=1)
     rt_cfg: ALILQRConfig = ALILQRConfig(n_outer=3, n_inner=10, tol_con=1e-3),
     mpc: MPCConfig = MPCConfig(),
     plant: PlantConfig = PlantConfig(),
@@ -571,8 +569,8 @@ def rt_closed_loop(
     multipliers/penalty, then every control period runs the reduced-iteration
     rt config warm-started with carried mu (mu_reset is forced off — resetting
     mu under carried lam is the drift failure mode, see steady_warm). This is
-    the per-step-budget deployment mode: the rt solve is ~2.5x cheaper than
-    the full config at equal warm latency floors (docs/LATENCY.md)."""
+    the per-step-budget deployment mode: the rt config caps the solve at
+    3x10 iterations where the full one allows 6x12."""
     res0 = solve(ocp, cold_start(ocp, full_cfg), full_cfg)
     warm = shift_warm(res0, rt_cfg, mu_reset=False, lam_decay=mpc.lam_decay)
     mpc_rt = dataclasses.replace(mpc, mu_reset=False)

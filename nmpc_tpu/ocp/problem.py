@@ -1,6 +1,6 @@
 """OCP definition: the multiple-shooting NMPC problem as a JAX pytree.
 
-This is the TPU-native replacement for the reference's inline CasADi graph
+This is the JAX replacement for the reference's inline CasADi graph
 construction (L2 of SURVEY.md §1): decision trajectory (X, U), stage cost
 sum_k (x_k - xref_k)' Q (x_k - xref_k) + u_k' R u_k, explicit-Euler dynamics,
 and the inequality set
@@ -509,8 +509,8 @@ def al_penalty(c: jax.Array, lam: jax.Array, mu) -> jax.Array:
 
     The conventional PHR term is (max(0, lam - mu c)^2 - lam^2) / (2 mu); the
     -lam^2 part is constant in the decision variables, so we drop it — same
-    minimizer, and the merit keeps full f32 resolution (important on TPU:
-    subtracting a large constant would swamp line-search decrements)."""
+    minimizer, and the merit keeps full f32 resolution (subtracting a large
+    constant would swamp line-search decrements in f32)."""
     act = jnp.maximum(0.0, lam - mu * c)
     return jnp.sum(act * act) / (2.0 * mu)
 

@@ -14,7 +14,7 @@ joint problem's KKT points as fixed points. That is the decomposition this
 module runs, one round being:
 
   1. exchange position plans (a single `jax.lax.all_gather` over the robot
-     mesh axis — the ICI collective standing in for the reference's
+     mesh axis — the collective standing in for the reference's
      shared-world coupling, SURVEY.md §5.8),
   2. every robot solves its own 3-state OCP with the neighbors' gathered
      plans as *stage-synchronous* moving keep-outs (same stage k vs stage k
@@ -34,8 +34,8 @@ vs `decentralized.decentralized_step`: that is ONE Jacobi round per control
 period against stale plans — the paper's decentralized *architecture*.
 This module iterates rounds at a FIXED initial state until the joint
 iterate settles, i.e. it solves the centralized problem itself with robots
-as the parallel axis: lanes of one fused megakernel on a single chip,
-shards of a mesh across chips.
+as the parallel axis: the batch axis of the batch-native engine on one
+device, shards of a mesh across devices.
 """
 
 from __future__ import annotations
@@ -87,8 +87,8 @@ def consensus_solve(
     engine: str = "fused",
     rh_bias: float = 0.0,
 ):
-    """Joint solve on one program: robots ride the batch axis (fused
-    megakernel lanes, or vmap of the per-scenario solver with
+    """Joint solve on one program: robots ride the batch axis (of the
+    batch-native engine, or of a vmap of the per-scenario solver with
     engine='xla').
 
     Returns (X [m, N+1, 3], U [m, N, 2], warms, plans, viol_hist [rounds],
@@ -113,9 +113,7 @@ def consensus_solve(
     if warms is None:
         warms = jax.vmap(lambda _: cold_start(template, cfg))(jnp.arange(m))
 
-    from nmpc_tpu.ops.rollout_pallas import supports
-
-    use_fused = engine == "fused" and supports(template)
+    use_fused = engine == "fused"
     if use_fused:
         from nmpc_tpu.solver.alilqr_batched import solve_batched
 
@@ -275,16 +273,13 @@ def consensus_solve_sharded(
       (X [m, N+1, 3], U [m, N, 2], warms, plans, viol_hist, delta_hist)
     with the robot-carried outputs sharded and the histories replicated.
 
-    engine='fused' (default) solves each chip's WHOLE shard of robots as
-    lanes of one fused megakernel per round — shard = several robots, so
-    large fleets (m = 48/96 circles over an 8-chip mesh = 6/12 robots per
-    chip) pay one Pallas program per chip per round instead of m/d
-    sequentialized per-robot solves. engine='xla' keeps the vmapped
-    per-scenario solver (the round-2 form)."""
+    engine='fused' (default) solves each device's WHOLE shard of robots
+    as one batch of the batch-native engine per round — shard = several
+    robots, so a large fleet pays one batched solve per device per round
+    instead of m/d per-robot solves. engine='xla' keeps the vmapped
+    per-scenario solver."""
     N = template.N
-    from nmpc_tpu.ops.rollout_pallas import supports
-
-    use_fused = engine == "fused" and supports(template)
+    use_fused = engine == "fused"
     if use_fused:
         from nmpc_tpu.solver.alilqr_batched import solve_batched
 

@@ -6,10 +6,10 @@ that only share a Gazebo world (mpc_online_casadi_tb3_{1,2,3}.py — SURVEY.md
 each robot solves its *own* 3-state OCP treating the other robots' previously
 exchanged plans as time-indexed moving obstacles, then publishes its new plan.
 
-TPU mapping: per-robot subproblems ride a vmap axis (one fused program, all
-robots solved simultaneously); across a device mesh the plan exchange is a
-single `jax.lax.all_gather` over the 'robots' axis inside `shard_map` — the
-ICI-collective analog of the reference's ROS topic bus (SURVEY.md §5.8).
+Device mapping: per-robot subproblems ride the batch axis of one program
+(all robots solved simultaneously); across a device mesh the plan exchange
+is a single `jax.lax.all_gather` over the 'robots' axis inside `shard_map` —
+the collective analog of the reference's ROS topic bus (SURVEY.md §5.8).
 """
 
 from __future__ import annotations
@@ -80,9 +80,9 @@ def decentralized_step(
     on asymmetric numerics).
 
     engine: 'fused' routes the per-robot subproblems through the batch-native
-    Pallas megakernel (robots on the lane axis, neighbor plans as per-element
-    moving-obstacle VMEM inputs); 'xla' vmaps the per-scenario solver —
-    ~35x slower on TPU (STATUS.md), kept for verification."""
+    engine (solver/alilqr_batched.py: robots on the batch axis, neighbor
+    plans as per-element moving obstacles); 'xla' vmaps the per-scenario
+    solver, kept for verification."""
     m = plans.shape[0]
     N = template.N
     nbr = _neighbor_index(m)
@@ -98,9 +98,7 @@ def decentralized_step(
         left = jnp.stack([-rel[..., 1], rel[..., 0]], axis=-1) / nrm
         mov = mov + rh_bias * left
 
-    from nmpc_tpu.ops.rollout_pallas import supports
-
-    if engine == "fused" and supports(template):
+    if engine == "fused":
         from nmpc_tpu.solver.alilqr_batched import solve_batched
 
         ocp_b = dataclasses.replace(
@@ -216,7 +214,7 @@ def decentralized_step_sharded(
     axis: str = "robots",
 ):
     """shard_map form: robots sharded over the mesh axis; the plan exchange is
-    an all_gather collective over ICI (the TCPROS replacement). Returns a
+    an all_gather collective between devices (the TCPROS replacement). Returns a
     jitted callable (x_joint_sharded [m,3], goals [m,3], plans [m,N+1,2],
     warms) -> (u [m,2], plans_new)."""
     N = template.N

@@ -4,7 +4,9 @@ The reference's only 'distribution' is ROS topics over TCP (SURVEY.md §2.4 /
 §5.8). Here distribution is a jax.sharding.Mesh: the scenario batch rides the
 'data' axis (embarrassingly parallel, no collectives in the solve), and the
 decentralized mode exchanges neighbor plans with XLA collectives
-(all_gather/ppermute) over ICI — never a host-side message-passing layer.
+(all_gather/ppermute) between devices — never a host-side message-passing
+layer. The mesh is 1-D: the cards of one host are joined all to all, so a
+single axis is the whole topology.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Stands in for the TurtleBot3 LDS that feeds /scan in the reference
 (obs_avoid_static_first_scenario_v4.py:29-40): numRays rays at body-frame
 angles B0[j] = 2 pi j / numRays, ranges capped at scan_max = 3.5 m (the
 reference maps Inf returns to 3.5). Fully vectorized over rays x obstacles —
-one fused VPU kernel per scan.
+one fused elementwise kernel per scan.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Batched dense ADMM QP solver — the OSQP capability, TPU-native.
+"""Batched dense ADMM QP solver — the OSQP capability.
 
 The reference prototypes linear time-varying MPC as a sparse QP solved by
 OSQP (/root/reference/AllScripts/mpc_osqp_test.py:104-151): decision
@@ -6,8 +6,8 @@ z = [x_0..x_N; u_0..u_{N-1}], equality dynamics as l = u rows, box bounds on
 states/inputs, warm-started `prob.update(l, u)` each period.
 
 This module implements the same ADMM iteration (OSQP's splitting) with a
-*dense* pre-factorized KKT matrix: on TPU a dense Cholesky of a few-hundred
--dim matrix is one MXU-friendly factorization, reused across iterations and
+*dense* pre-factorized KKT matrix: a dense Cholesky of a few-hundred-dim
+matrix is one batched library factorization, reused across iterations and
 across every batch element / MPC step (the matrix depends only on the
 problem structure, not on l, u, q — exactly the property OSQP's
 `update(l, u)` exploits). vmap over (q, l, u) gives thousands of QPs per
@@ -118,7 +118,7 @@ def qp_setup_batched(P, A, cfg: ADMMConfig = ADMMConfig(), l=None, u=None):
     """Batched `qp_setup`: P may be shared [n, n] or batched [B, n, n]; A is
     batched [B, rows, n] (the LTV case — the reference re-linearizes Bd and
     re-runs OSQP setup every control period, mpc_osqp_test.py:88-121). The
-    B Cholesky factorizations run as one batched MXU call."""
+    B Cholesky factorizations run as one batched call."""
     in_p = 0 if P.ndim == 3 else None
     in_l = None if l is None else (0 if l.ndim == 2 else None)
     in_u = None if u is None else (0 if u.ndim == 2 else None)
@@ -131,7 +131,7 @@ def qp_setup_batched(P, A, cfg: ADMMConfig = ADMMConfig(), l=None, u=None):
 def qp_solve_batched(fac: QPFactor, q, l, u, cfg: ADMMConfig = ADMMConfig(),
                      x0=None, y0=None):
     """Fleet entry: solve B QPs in one call — every ADMM iteration is a
-    batched GEMM + batched triangular solve on the MXU. `fac` may be shared
+    batched GEMM + batched triangular solve. `fac` may be shared
     (one factorization, leaves [n, n] / [rows, n]) or per-element (batched
     leaves from `qp_setup_batched`). q/l/u are [B, ...]; optional warm
     starts are batched. Returns the same tuple as `qp_solve`, batched."""

@@ -1,4 +1,4 @@
-"""AL-iLQR: augmented-Lagrangian iLQR — the TPU-native NLP engine.
+"""AL-iLQR: augmented-Lagrangian iLQR — the NLP engine.
 
 Replaces CasADi's `nlpsol('solver','ipopt', ...)` (L3 of SURVEY.md §1;
 /root/reference/AllScripts/mpc_online_casadi_tb3_six_multi_centralized_collision_free.py:272-276).
@@ -8,7 +8,8 @@ construction) and the PHR multiplier iteration drives the KKT conditions of
 the inequality set to tolerance, so solutions match IPOPT's to trajectory
 tolerance.
 
-Why this shape for TPU (instead of an interior-point + sparse-LDL^T port):
+Why this shape for an accelerator (instead of an interior-point +
+sparse-LDL^T port):
   * every iteration is fixed-shape and branch-free under `jit` — the whole
     solve is nested `lax.scan`/`lax.while_loop`, compiled once per
     (m, N, n_obs) bucket;
@@ -19,8 +20,8 @@ Why this shape for TPU (instead of an interior-point + sparse-LDL^T port):
     inertia-correction branches, a fixed Levenberg regularizer suffices;
   * the line search evaluates all step lengths *in parallel* (vmap over
     alphas) rather than sequentially backtracking;
-  * everything vmaps over a scenario batch, turning the per-scenario
-    latency-bound small-matrix chain into large batched GEMMs for the MXU.
+  * everything vmaps over a scenario batch (solver/alilqr_batched.py is the
+    batch-native form).
 
 Structure: outer PHR multiplier loop (lam <- max(0, lam - mu c), mu <- b mu)
 around an inner iLQR descent on the AL merit.  Control bounds are both
@@ -56,32 +57,27 @@ class ALILQRConfig:
     tol_con: float = 1e-4     # max constraint violation stop (outer)
     lam_max: float = 1e6      # multiplier clip
     armijo: float = 1e-4      # accept fraction of expected decrease
-    mega: bool = True         # batched path: fuse the whole inner solve into
-                              # one Pallas program (ops/megasolve_pallas.py)
-    ls: str = "cascade"       # line-search strategy in the megakernel:
+    ls: str = "cascade"       # line-search strategy of the batched engine
+                              # (solver/alilqr_batched.py; the per-scenario
+                              # `solve` always runs the cascade):
                               # "cascade" = evaluate every cfg.alphas
                               # candidate, accept the best Armijo-passing
-                              # one (the reference-parity strategy; always
-                              # used by the staged/XLA paths);
-                              # "adaptive" = carried per-lane trial step:
-                              # each round rolls ONE candidate with a
-                              # per-lane alpha (first-accept Armijo), failed
-                              # lanes backtrack by ls_beta, rounds stop as
-                              # soon as every lane of the 128-lane tile has
-                              # accepted, and the accepted step is grown by
-                              # ls_grow (capped at 1) for the next
-                              # iteration. Measured: typical iterations pay
-                              # 1-2 merit evaluations instead of
-                              # len(alphas) = 8 — the measured line-search
-                              # bound of the cascade (STATUS.md round-2
-                              # megakernel exploration).
+                              # one (the reference-parity strategy);
+                              # "adaptive" = carried per-element trial
+                              # step: each round rolls ONE candidate with a
+                              # per-element alpha (first-accept Armijo),
+                              # failed elements backtrack by ls_beta, and
+                              # the accepted step is grown by ls_grow
+                              # (capped at 1) for the next iteration. A
+                              # typical iteration pays 1-2 merit
+                              # evaluations instead of len(alphas) = 8.
     ls_rounds: int = 2        # adaptive: candidate evaluations/iteration.
-                              # A lane that fails every round is NOT marked
+                              # An element that fails every round is NOT
                               # done — its carried trial keeps shrinking and
                               # it retries next iteration (fail-continue),
                               # so small ls_rounds trades a few extra cheap
                               # iterations for far fewer merit evaluations;
-                              # a lane gives up only once its trial falls
+                              # it gives up only once its trial falls
                               # below ls_trial_min (the analog of
                               # exhausting the cascade's alpha grid).
     ls_beta: float = 0.2      # adaptive: backtrack factor on rejection
@@ -105,27 +101,11 @@ class ALILQRConfig:
                               # goal-directed trajectory instead of rest
                               # (batched paths only; ignored for
                               # ray-augmented problems)
-    compact: bool = False     # megakernel path: between AL outer steps,
-                              # permute the batch so unconverged lanes pack
-                              # into dense 128-lane tiles (converged-only
-                              # tiles then exit the fused inner solve after
-                              # one no-op iteration). Attacks the lane-
-                              # divergence gap at outer-step granularity —
-                              # the solver is in XLA land there, so the
-                              # gather/scatter is plain jnp.take (VERDICT
-                              # r4 ask #7). Measured win depends on the
-                              # convergence profile: most lanes converge at
-                              # the same outer step on the bench shape, so
-                              # the win is the near-empty trailing outer
-                              # passes. Outputs are inverse-permuted;
-                              # results are element-wise identical.
     sweep: str = "seq"        # backward pass: "seq" = O(N) Riccati scan,
                               # "scan" = O(log N) associative-scan LQR
                               # (ops/assoc_lqr.py) for long horizons (the
                               # reference runs N up to 200, tb3_1.py:57),
-                              # "auto" = scan iff N >= SCAN_N_MIN and the
-                              # batch is small (solver.alilqr_batched
-                              # thresholds; per-scenario solve treats B = 1)
+                              # "auto" = scan iff N >= SCAN_N_MIN
     final_clamp: bool = True  # project the returned controls onto the
                               # actuator box and re-roll once (ALTRO-style
                               # feasibility restoration). The AL penalty
@@ -240,44 +220,65 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
 # ---------------------------------------------------------------------------
 
 
-def _backward_pass(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
-    """LQR backward recursion over the AL-quadratized problem.
+def resolve_sweep(cfg: ALILQRConfig, N: int) -> str:
+    """cfg.sweep with 'auto' resolved: the associative scan only from
+    SCAN_N_MIN stages up (see its note)."""
+    if cfg.sweep != "auto":
+        return cfg.sweep
+    return "scan" if N >= SCAN_N_MIN else "seq"
 
-    Terminal value is exactly zero: the reference objective carries no
-    terminal cost and no constraints on X[:,N] (SURVEY.md §2.1)."""
+
+# sweep='auto' threshold. No shape the reference publishes (N <= 200) is
+# known to favour the O(log N) associative scan over the sequential sweep:
+# each scan combine is a dense [nx, nx] product chain that does log N times
+# the sequential sweep's work. The crossover on the GPU has not been
+# measured, so 'auto' resolves to 'seq' at every published shape and 'scan'
+# stays an explicit opt-in.
+SCAN_N_MIN = 10_000
+
+
+def stage_expansions(ocp: OCP, X, U, lam, mu):
+    """Dynamics Jacobians and AL stage expansions at stages 0..N-1:
+    (A, B, lx, lu, lxx, luu, lux), each with a leading [N] axis."""
     A, B = jax.vmap(lambda x, u: _stage_jacobians(ocp, x, u))(X[:-1], U)
     lx, lu, lxx, luu, lux = jax.vmap(
         lambda x, u, r, l, mk: _stage_expansion(ocp, x, u, r, l, mk, mu)
     )(X[:-1], U, ocp.xref, lam, ocp.mov_obs)
+    return A, B, lx, lu, lxx, luu, lux
 
-    sweep = cfg.sweep
-    if sweep == "auto":
-        from nmpc_tpu.solver.alilqr_batched import SCAN_N_MIN
 
-        sweep = "scan" if ocp.N >= SCAN_N_MIN else "seq"
-    if sweep == "scan":
+def lqr_gains(cfg: ALILQRConfig, A, B, lx, lu, lxx, luu, lux):
+    """Feedback gains of the AL-quadratized LQ subproblem of one scenario:
+    (kff [N, nu], Kfb [N, nu, nx], dV1), dV1 the expected decrease's linear
+    term. Terminal value is exactly zero: the reference objective carries no
+    terminal cost and no constraints on X[:,N] (SURVEY.md §2.1)."""
+    if resolve_sweep(cfg, A.shape[0]) == "scan":
         # horizon-parallel associative-scan LQR: O(log N) depth instead of an
-        # N-step sequential chain — the win is the long-horizon configs
-        # (N=100..200). Iterates are single-shooting consistent, so the LQ
-        # subproblem in delta coordinates has zero defects (c = 0).
+        # N-step sequential chain. Iterates are single-shooting consistent,
+        # so the LQ subproblem in delta coordinates has zero defects (c = 0).
         from nmpc_tpu.ops.assoc_lqr import parallel_lqr_gains
 
-        reg_I = cfg.reg * jnp.eye(ocp.nu, dtype=X.dtype)
-        kff, Kfb, S, v = parallel_lqr_gains(
+        reg_I = cfg.reg * jnp.eye(B.shape[-1], dtype=A.dtype)
+        kff, Kfb, _, v = parallel_lqr_gains(
             A, B, jnp.zeros_like(lx), lxx, lx, luu + reg_I, lu, lux
         )
-        # expected-decrease linear term: dV1 = sum_k kff_k . Qu_k with
-        # Qu_k = lu_k + B_k' Vx_{k+1} and Vx = S @ 0 - v = -v (delta coords)
+        # dV1 = sum_k kff_k . Qu_k with Qu_k = lu_k + B_k' Vx_{k+1} and
+        # Vx = S @ 0 - v = -v (delta coords)
         Qu = lu - jnp.einsum("knm,kn->km", B, v[1:])
-        dV1 = jnp.sum(kff * Qu)
-        return kff, Kfb, dV1, jnp.zeros((), X.dtype)
+        return kff, Kfb, jnp.sum(kff * Qu)
+    return riccati_sweep(A, B, lx, lu, lxx, luu, lux, cfg.reg)
 
-    nx, nu = ocp.nx, ocp.nu
-    dtype = X.dtype
-    reg = jnp.asarray(cfg.reg, dtype)
+
+def riccati_sweep(A, B, lx, lu, lxx, luu, lux, reg):
+    """Sequential LQR backward recursion over the N stages of one scenario:
+    A [N, nx, nx], B [N, nx, nu], lx [N, nx], lu [N, nu], lxx [N, nx, nx],
+    luu [N, nu, nu], lux [N, nu, nx] -> (kff [N, nu], Kfb [N, nu, nx], dV1)."""
+    nx, nu = A.shape[-1], B.shape[-1]
+    dtype = A.dtype
+    reg = jnp.asarray(reg, dtype)
 
     def body(carry, inp):
-        Vx, Vxx, dV1, dV2 = carry
+        Vx, Vxx, dV1 = carry
         A_k, B_k, lx_k, lu_k, lxx_k, luu_k, lux_k = inp
         AtV = A_k.T @ Vxx
         Qx = lx_k + A_k.T @ Vx
@@ -292,20 +293,14 @@ def _backward_pass(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
         Vx_n = Qx + Kfb.T @ Quu @ kff + Kfb.T @ Qu + Qux.T @ kff
         Vxx_n = Qxx + Kfb.T @ Quu @ Kfb + Kfb.T @ Qux + Qux.T @ Kfb
         Vxx_n = 0.5 * (Vxx_n + Vxx_n.T)
-        dV1 = dV1 + jnp.dot(kff, Qu)
-        dV2 = dV2 + 0.5 * jnp.dot(kff, Quu @ kff)
-        return (Vx_n, Vxx_n, dV1, dV2), (kff, Kfb)
+        return (Vx_n, Vxx_n, dV1 + jnp.dot(kff, Qu)), (kff, Kfb)
 
-    init = (
-        jnp.zeros((nx,), dtype),
-        jnp.zeros((nx, nx), dtype),
-        jnp.zeros((), dtype),
-        jnp.zeros((), dtype),
-    )
-    (_, _, dV1, dV2), (kff, Kfb) = jax.lax.scan(
+    init = (jnp.zeros((nx,), dtype), jnp.zeros((nx, nx), dtype),
+            jnp.zeros((), dtype))
+    (_, _, dV1), (kff, Kfb) = jax.lax.scan(
         body, init, (A, B, lx, lu, lxx, luu, lux), reverse=True
     )
-    return kff, Kfb, dV1, dV2
+    return kff, Kfb, dV1
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +321,7 @@ def _forward_rollout(ocp: OCP, X, U, kff, Kfb, alpha):
 
 
 def _line_search(ocp: OCP, cfg: ALILQRConfig, X, U, kff, Kfb, lam, mu, cost0, dV1):
-    """All candidate steps evaluated in parallel (vmap over alphas) — a TPU
+    """All candidate steps evaluated in parallel (vmap over alphas) — one
     batch instead of IPOPT's sequential backtracking. Accepts the best
     candidate achieving an Armijo fraction of the expected LQR decrease."""
     alphas = jnp.asarray(cfg.alphas, X.dtype)
@@ -361,7 +356,7 @@ def _inner_ilqr(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
 
     def body(carry):
         X, U, cost, it, _ = carry
-        kff, Kfb, dV1, _ = _backward_pass(ocp, cfg, X, U, lam, mu)
+        kff, Kfb, dV1 = lqr_gains(cfg, *stage_expansions(ocp, X, U, lam, mu))
         Xn, Un, costn, improved = _line_search(ocp, cfg, X, U, kff, Kfb, lam, mu, cost, dV1)
         rel_drop = (cost - costn) / (1.0 + jnp.abs(cost))
         done = (~improved) | (rel_drop < cfg.tol_cost)

@@ -1,21 +1,29 @@
-"""Batch-native AL-iLQR: the production path for scenario fleets.
+"""Batch-native AL-iLQR: the engine for scenario fleets and for the B=1
+closed-loop solve.
 
-`jax.vmap(solve)` is correct but leaves the backward Riccati sweep as N
-sequential stages of tiny batched ops — measured 16x slower than the fused
-Pallas kernel (ops/riccati_pallas.py) at B=2048. This module restructures the
-solver loop to operate on [B, ...] arrays natively so the backward pass is a
-single fused kernel per iteration; everything else (rollouts, expansions,
-line search) is vmapped XLA, which already batches well.
+Every array carries a leading batch axis [B, ...]. The AL outer loop, the
+iLQR inner loop and the line search run as `lax.while_loop`s over the whole
+batch with per-element masks, until every element is done or the iteration
+caps are reached. An element that has converged (outer loop) or finished its
+inner solve is frozen by selects, so its result does not depend on what
+else is in the batch.
 
-Semantics match solver/alilqr.py (same AL outer loop, same merit, same
-stopping rules) with per-element convergence masks; the loop runs until every
-batch element is done. Batch size is padded to the kernel's 128-lane tile.
+Semantics match solver/alilqr.py (same AL outer loop, merit, expansions,
+backward sweep and stopping rules). `ALILQRConfig.ls` picks the line search:
+the alpha cascade of the per-scenario engine, or the adaptive per-element
+carried trial step.
+
+Route rule (`choose_route`): the inner iLQR solve of each AL outer step runs
+as the fused Triton kernel (ops/inner_solve_triton.py) when the problem is
+in the kernel's class (`supports`, sequential sweep, at most
+KERNEL_MAX_ROBOTS robots) and the default backend is the GPU; otherwise it
+runs in plain XLA (`_inner_xla`), which is also the reference every kernel
+is compared against. The AL outer loop is XLA on both routes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,32 +34,44 @@ from nmpc_tpu.solver.alilqr import (
     ALILQRConfig,
     SolveResult,
     WarmStart,
-    _stage_expansion,
-    _stage_jacobians,
+    lqr_gains,
+    resolve_sweep,
+    stage_expansions,
 )
-from nmpc_tpu.ops.riccati_pallas import LANES, _from_lane, _to_lane, riccati_fused, riccati_lanes
-from nmpc_tpu.ops import rollout_pallas
-from nmpc_tpu.ops.expansions_pallas import expansions_fused
-from nmpc_tpu.ops.megasolve_pallas import inner_solve_fused
 
 _META = P.OCP_META
 
-# sweep='auto' resolution. Measured on v5e at the reference's longest
-# horizon (tb3_1, N=200 — docs/SWEEP.md): the associative-scan backward pass
-# loses to the VMEM-resident sequential megakernel sweep by 2-3 orders of
-# magnitude at EVERY batch size, B=1 included — each scan combine is a tiny
-# HBM-bound linalg op while the "sequential" sweep runs 128 lanes in
-# parallel entirely in VMEM. auto therefore resolves to seq at every shape
-# this engine compiles; scan stays an explicit opt-in. SCAN_N_MIN is kept
-# (effectively unreachable) as the knob to flip if a future shape/hardware
-# combination inverts the trade.
-SCAN_N_MIN = 10_000
+
+def supports(ocp: OCP) -> bool:
+    """Problem class of the fused inner-solve kernel: stacked-unicycle Euler
+    dynamics with pair / static-obstacle / moving-obstacle / box rows
+    (LiDAR rays and user-supplied dynamics are outside it)."""
+    return ocp.num_rays == 0 and ocp.integrator == "euler" and ocp.dyn_fn is None
 
 
-def _resolve_sweep(cfg: ALILQRConfig, N: int, B: int) -> str:
-    if cfg.sweep != "auto":
-        return cfg.sweep
-    return "scan" if N >= SCAN_N_MIN else "seq"
+# inner-solve routes of solve_batched
+ROUTES = ("xla", "triton")
+
+# Largest team the kernel route takes by default. Measured on an H100
+# (PERF.md): the kernel beats the XLA route at every shape it ran — 8.8x at
+# one robot N=200 B=1, 15.7x at two robots B=4096, 7.1x at six robots
+# B=32768 — but its compile time grows steeply with the team (5 s at one
+# robot, 17 s at two, 190 s at six, over 8 min at ten, against 6-13 s for
+# the XLA route), and XLA's SPMD partitioner does not split the kernel's
+# custom call across devices, so a sharded fleet would run it replicated.
+KERNEL_MAX_ROBOTS = 2
+
+
+def choose_route(ocp_b: OCP, cfg: ALILQRConfig) -> str:
+    """The inner-solve route `solve_batched` takes: the Triton kernel for
+    its problem class (`supports`, with the sequential sweep — the kernel
+    has no associative scan) with at most KERNEL_MAX_ROBOTS robots, on the
+    GPU; XLA otherwise."""
+    if (supports(ocp_b) and ocp_b.m <= KERNEL_MAX_ROBOTS
+            and resolve_sweep(cfg, ocp_b.N) == "seq"
+            and jax.default_backend() == "gpu"):
+        return "triton"
+    return "xla"
 
 
 def _batch_fields(ocp_b: OCP):
@@ -76,17 +96,10 @@ def _vm(fn, ocp_b: OCP, *batched):
     return jax.vmap(fn, in_axes=(ocp_axes,) + (0,) * len(batched))(ocp_b, *batched)
 
 
-def _expansions(ocp_b: OCP, X, U, lam, mu):
-    """[B] batched stage expansions + dynamics Jacobians."""
-
-    def one(ocp, X, U, lam, mu_e):
-        A, B = jax.vmap(lambda x, u: _stage_jacobians(ocp, x, u))(X[:-1], U)
-        lx, lu, lxx, luu, lux = jax.vmap(
-            lambda x, u, r, l, mk: _stage_expansion(ocp, x, u, r, l, mk, mu_e)
-        )(X[:-1], U, ocp.xref, lam, ocp.mov_obs)
-        return A, B, lx, lu, lxx, luu, lux
-
-    return _vm(one, ocp_b, X, U, lam, mu)
+def _gains_b(ocp_b: OCP, cfg: ALILQRConfig, X, U, lam, mu):
+    """[B] batched backward pass: expansions, then the LQ gains."""
+    return _vm(lambda o, x, u, l, m_: lqr_gains(cfg, *stage_expansions(o, x, u, l, m_)),
+               ocp_b, X, U, lam, mu)
 
 
 def _rollout_b(ocp_b: OCP, U):
@@ -98,6 +111,7 @@ def _al_cost_b(ocp_b: OCP, X, U, lam, mu):
 
 
 def _forward_b(ocp_b: OCP, X, U, kff, Kfb, alpha):
+    """Closed-loop rollout under the gains with a per-element step alpha [B]."""
     def one(ocp, X, U, kff, Kfb, alpha):
         def body(x, inp):
             xbar, ubar, k_k, K_k = inp
@@ -117,280 +131,219 @@ def _finalize(ocp_b: OCP, X, U, cfg: ALILQRConfig):
     if cfg.final_clamp:
         U = jnp.clip(U, ocp_b.u_lo[None, None], ocp_b.u_hi[None, None])
         X = _rollout_b(ocp_b, U)
-    cmask = _vm(lambda o, x, u: P.masked_trajectory_constraints(o, x, u),
-                ocp_b, X, U)
-    viol = jnp.maximum(0.0, -jnp.min(cmask, axis=(1, 2)))
+    viol = _vm(lambda o, x, u: P.max_violation(o, x, u), ocp_b, X, U)
     cost = _vm(lambda o, x, u: P.total_cost(o, x, u), ocp_b, X, U)
     return X, U, cost, viol
 
 
-def _mov_lanes(ocp_b: OCP, Bt: int, tiles: int):
-    """Lane-major moving-obstacle schedule [t, N, 2*n_mov, L] (None if none).
-    An unbatched schedule (shared across elements) is broadcast."""
-    if not ocp_b.n_mov:
-        return None
-    mov = ocp_b.mov_obs
-    if mov.ndim == 3:
-        mov = jnp.broadcast_to(mov[None], (Bt, *mov.shape))
-    return _to_lane(mov.reshape(Bt, ocp_b.N, 2 * ocp_b.n_mov), tiles)
+def _sel(mask, new, old):
+    """Per-element select over arrays with a leading batch axis."""
+    return jnp.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
-def _solve_lanes(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig, B: int, Bt: int) -> SolveResult:
-    """Fully lane-major solve loop: every per-iteration stage (expansions,
-    Riccati sweep, line search, accepted rollout) is a fused Pallas kernel on
-    [tiles, N, ..., 128] data — zero layout transposes inside the inner loop.
-    Only the per-outer multiplier update and final packaging run in the
-    standard layout."""
-    N, n, mc, nc = ocp_b.N, ocp_b.nx, ocp_b.nu, ocp_b.n_con
+def _cascade(ocp_b, cfg, X, U, kff, Kfb, lam, mu, cost, dV1):
+    """Every cfg.alphas candidate rolled in parallel; per element the
+    cheapest Armijo-passing one. Returns (improved, X, U, cost) of it."""
+    B = X.shape[0]
+    alphas = jnp.asarray(cfg.alphas, X.dtype)
+
+    def try_alpha(a):
+        Xn, Un = _forward_b(ocp_b, X, U, kff, Kfb, jnp.full((B,), a, X.dtype))
+        return Xn, Un, _al_cost_b(ocp_b, Xn, Un, lam, mu)
+
+    Xs, Us, costs = jax.vmap(try_alpha)(alphas)                # [A, B, ...]
+    expected = cfg.armijo * alphas[:, None] * jnp.maximum(-dV1, 0.0)[None, :]
+    ok = (cost[None] - costs) >= expected
+    best = jnp.argmin(jnp.where(ok, costs, jnp.inf), axis=0)  # [B]
+    take = lambda arr: arr[best, jnp.arange(B)]
+    cost_best = take(costs)
+    improved = take(ok) & (cost_best < cost)
+    return improved, take(Xs), take(Us), cost_best
+
+
+def _adaptive(ocp_b, cfg, X, U, kff, Kfb, lam, mu, cost, dV1, trial):
+    """Carried per-element trial step, first-accept Armijo (ALILQRConfig.ls
+    = 'adaptive'): each of cfg.ls_rounds rounds rolls one candidate per
+    element; an element that rejects backtracks its trial by ls_beta, an
+    accepted step grows by ls_grow (capped at 1) for the next iteration.
+    A round in which every element has already accepted is skipped; it
+    would change nothing, since accepted elements roll alpha 0 and cannot
+    accept again. Returns (alpha, X, U, cost, trial); alpha = 0 where no
+    round accepted."""
+    decrease = jnp.maximum(-dV1, 0.0)
+    zero = jnp.zeros_like(cost)
+    state = (jnp.zeros(cost.shape, bool), zero, X, U, cost, trial)
+
+    def ls_round(state):
+        acc, alpha_b, Xb, Ub, cost_b, trial = state
+        a = jnp.where(acc, 0.0, trial)
+        Xa, Ua = _forward_b(ocp_b, X, U, kff, Kfb, a)
+        ca = _al_cost_b(ocp_b, Xa, Ua, lam, mu)
+        ok = (~acc) & ((cost - ca) >= cfg.armijo * a * decrease) & (ca < cost)
+        acc = acc | ok
+        return (acc, jnp.where(ok, a, alpha_b), _sel(ok, Xa, Xb),
+                _sel(ok, Ua, Ub), jnp.where(ok, ca, cost_b),
+                jnp.where(acc, trial, trial * cfg.ls_beta))
+
+    for _ in range(cfg.ls_rounds):
+        state = jax.lax.cond(jnp.all(state[0]), lambda s: s, ls_round, state)
+    _, alpha, Xb, Ub, cost_b, trial = state
+    trial = jnp.where(alpha > 0.0, jnp.minimum(1.0, alpha * cfg.ls_grow), trial)
+    return alpha, Xb, Ub, cost_b, trial
+
+
+def _inner_xla(ocp_b: OCP, cfg: ALILQRConfig, X, U, lam, mu, done0):
+    """Inner iLQR solve of one AL outer step for every element not already
+    done (done0). Returns (X, U, per-element iteration counts)."""
+    B = X.shape[0]
+    adaptive = cfg.ls == "adaptive"
+    cost0 = _al_cost_b(ocp_b, X, U, lam, mu)
+
+    def cond(c):
+        it, done = c[3], c[5]
+        return (it < cfg.n_inner) & ~jnp.all(done)
+
+    def body(c):
+        X, U, cost, it, it_vec, done, trial = c
+        it_vec = it_vec + (~done).astype(jnp.int32)
+        kff, Kfb, dV1 = _gains_b(ocp_b, cfg, X, U, lam, mu)
+        if adaptive:
+            alpha, Xn, Un, costn, trial_n = _adaptive(
+                ocp_b, cfg, X, U, kff, Kfb, lam, mu, cost, dV1, trial)
+            improved = alpha > 0.0
+        else:
+            improved, Xn, Un, costn = _cascade(
+                ocp_b, cfg, X, U, kff, Kfb, lam, mu, cost, dV1)
+            trial_n = trial
+        upd = improved & ~done
+        costn = jnp.where(upd, costn, cost)
+        rel = (cost - costn) / (1.0 + jnp.abs(cost))
+        if adaptive:
+            # fail-continue: an unimproved element retries next iteration
+            # at its shrunk trial, until the trial falls below ls_trial_min
+            stop = (improved & (rel < cfg.tol_cost)) | (
+                ~improved & (trial_n <= cfg.ls_trial_min))
+        else:
+            stop = ~improved | (rel < cfg.tol_cost)
+        return (_sel(upd, Xn, X), _sel(upd, Un, U), costn, it + 1, it_vec,
+                done | stop, jnp.where(done, trial, trial_n))
+
+    init = (X, U, cost0, jnp.zeros((), jnp.int32), jnp.zeros((B,), jnp.int32),
+            done0, jnp.ones((B,), X.dtype))
+    X, U, _, _, it_vec, _, _ = jax.lax.while_loop(cond, body, init)
+    return X, U, it_vec
+
+
+def _inner_triton(ocp_b: OCP, cfg: ALILQRConfig, X, U, lam, mu, done0,
+                  interpret: bool = False):
+    """`_inner_xla`'s contract on the fused Triton kernel: the batch is
+    moved to the kernel's scenario-minor layout, padded to whole blocks
+    with elements marked done."""
+    from nmpc_tpu.ops.inner_solve_triton import BLOCK_B, inner_solve
+
+    B, N = U.shape[0], ocp_b.N
+    dtype = U.dtype
+    pad = (-B) % BLOCK_B
+
+    def lay(a, fill=None):   # [B, ...] -> [..., Bp]
+        if pad:
+            tail = (jnp.repeat(a[-1:], pad, 0) if fill is None
+                    else jnp.full((pad,) + a.shape[1:], fill, a.dtype))
+            a = jnp.concatenate([a, tail], 0)
+        return jnp.moveaxis(a, 0, -1)
+
+    mov = None
+    if ocp_b.n_mov:
+        mv = ocp_b.mov_obs
+        if mv.ndim == 3:
+            mv = jnp.broadcast_to(mv[None], (B, *mv.shape))
+        mov = lay(mv.reshape(B, N, 2 * ocp_b.n_mov))
+    U_t, iters, Xs = inner_solve(
+        ocp_b, cfg, lay(ocp_b.x0), lay(ocp_b.xref), lay(lam), lay(mu),
+        lay(done0.astype(dtype), 1.0), lay(U), mov, interpret=interpret)
+    U = jnp.moveaxis(U_t, -1, 0)[:B]
+    Xs = jnp.moveaxis(Xs, -1, 0)[:B]
+    xN = jax.vmap(lambda x, u: P.step_dynamics(ocp_b, x, u))(Xs[:, -1], U[:, -1])
+    X = jnp.concatenate([Xs, xN[:, None]], axis=1)
+    return X, U, iters[:B].astype(jnp.int32)
+
+
+def solve_one(
+    ocp: OCP,
+    warm: WarmStart | None = None,
+    cfg: ALILQRConfig = ALILQRConfig(),
+    route: str | None = None,
+) -> SolveResult:
+    """Single-scenario solve through the batch-native engine at B=1: the
+    engine of the closed-loop MPC drivers when they ask for the batched
+    engine's line search (SURVEY.md §6's per-step budget T). Interface
+    matches solver.alilqr.solve (unbatched OCP/WarmStart in, unbatched
+    SolveResult out)."""
+    ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
+    warm_b = None if warm is None else jax.tree.map(lambda a: jnp.asarray(a)[None], warm)
+    res = solve_batched(ocp_b, warm_b, cfg, route)
+    return jax.tree.map(lambda a: a[0], res)
+
+
+def solve_batched(
+    ocp_b: OCP,
+    warm: WarmStart | None = None,
+    cfg: ALILQRConfig = ALILQRConfig(),
+    route: str | None = None,
+) -> SolveResult:
+    """Solve a batch of OCPs (batch axis on x0/xref, and on mov_obs when it
+    is [B, N, n_mov, 2]). Jit-able; cfg static. `route` (one of ROUTES)
+    overrides the rule of `choose_route`, for comparisons."""
+    B = ocp_b.x0.shape[0]
+    N, nu, nc = ocp_b.N, ocp_b.nu, ocp_b.n_con
     dtype = ocp_b.x0.dtype
-    tiles = Bt // LANES
-    alphas = jnp.asarray(cfg.alphas, dtype)
-    ls_alphas = (0.0,) + tuple(cfg.alphas)
-
-    mov_l = _mov_lanes(ocp_b, Bt, tiles)
-    x0_l = _to_lane(ocp_b.x0[:, None], tiles)        # [t, 1, n, L]
-    xref_l = _to_lane(ocp_b.xref, tiles)             # [t, N, n, L]
-    U_l = _to_lane(U, tiles)
-    zero_k = jnp.zeros((tiles, N, mc, 1, LANES), dtype)
-    zero_K = jnp.zeros((tiles, N, mc, n, LANES), dtype)
-    zero_a = jnp.zeros((tiles, 1, LANES), dtype)
-    # initial rollout: alpha = 0, zero gains -> u = ubar exactly
-    Xtail_l, U_l = rollout_pallas.rollout_alpha_lanes(
-        ocp_b, x0_l, jnp.zeros((tiles, N, n, LANES), dtype), U_l, zero_k, zero_K, zero_a
-    )
-
-    def lane_vec(a_l):  # [t, 1, L] -> [Bt]
-        return _from_lane(a_l[:, None], Bt)[:, 0, 0]
-
-    def stages(Xtail_l):
-        return jnp.concatenate([x0_l, Xtail_l[:, :-1]], axis=1)  # states 0..N-1
-
-    def inner(Xtail_l, U_l, lam_l, mu_l):
-        def cond(c):
-            _, _, _, it, _, done = c
-            return (it < cfg.n_inner) & (~jnp.all(done))
-
-        def body(c):
-            Xtail_l, U_l, cost, it, it_vec, done = c
-            it_vec = it_vec + (~done).astype(jnp.int32)
-            Xs_l = stages(Xtail_l)
-            exp = expansions_fused(ocp_b, Xs_l, U_l, xref_l, lam_l, mu_l, mov_l)
-            kff_l, Kfb_l, dV1_c = riccati_lanes(exp, N, n, mc, cfg.reg)
-            dV1 = lane_vec(dV1_c)
-            costs_all = rollout_pallas.linesearch_costs_lanes(
-                ocp_b, x0_l, Xs_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu_l,
-                ls_alphas, mov_l
-            )
-            cost_cur, costs = costs_all[0], costs_all[1:]
-            expected = cfg.armijo * alphas[:, None] * jnp.maximum(-dV1, 0.0)[None, :]
-            ok = (cost_cur[None] - costs) >= expected
-            masked = jnp.where(ok, costs, jnp.inf)
-            best = jnp.argmin(masked, axis=0)
-            costn = costs[best, jnp.arange(Bt)]
-            okb = ok[best, jnp.arange(Bt)] & (costn < cost_cur)
-            upd = okb & (~done)
-            alpha_best = jnp.where(upd, alphas[best], 0.0)
-            alpha_l = _to_lane(alpha_best[:, None], tiles)
-            Xtail_n, U_n = rollout_pallas.rollout_alpha_lanes(
-                ocp_b, x0_l, Xs_l, U_l, kff_l, Kfb_l, alpha_l
-            )
-            costn = jnp.where(upd, costn, cost_cur)
-            rel = (cost_cur - costn) / (1.0 + jnp.abs(cost_cur))
-            done = done | (~okb) | (rel < cfg.tol_cost)
-            return (Xtail_n, U_n, costn, it + 1, it_vec, done)
-
-        Xtail_l, U_l, cost, it, it_vec, _ = jax.lax.while_loop(
-            cond, body,
-            (Xtail_l, U_l, jnp.zeros((Bt,), dtype), jnp.zeros((), jnp.int32),
-             jnp.zeros((Bt,), jnp.int32), jnp.zeros((Bt,), bool)),
+    if warm is None:
+        if cfg.cold_seed == "polar" and ocp_b.num_rays == 0:
+            U0 = _polar_seed(ocp_b)
+        else:
+            U0 = jnp.zeros((B, N, nu), dtype)
+        warm = WarmStart(
+            U=U0,
+            lam=jnp.zeros((B, N, nc), dtype),
+            mu=jnp.full((B,), cfg.mu_init, dtype),
         )
-        return Xtail_l, U_l, it_vec
-
-    def constraints_std(Xtail_l, U_l):
-        Xs = _from_lane(stages(Xtail_l), Bt)           # [Bt, N, n]
-        U = _from_lane(U_l, Bt)
-        X_full = jnp.concatenate([Xs, Xs[:, -1:]], axis=1)  # fake terminal (unused)
-        return Xs, U, _vm(lambda o, x, u: P.masked_trajectory_constraints(o, x, u),
-                          ocp_b, X_full, U)
+    U, lam, mu = warm.U, warm.lam, warm.mu
+    X = _rollout_b(ocp_b, U)
+    inner = _inner_triton if (route or choose_route(ocp_b, cfg)) == "triton" else _inner_xla
 
     def outer_cond(c):
-        _, _, _, _, it, _, _, done = c
-        return (it < cfg.n_outer) & (~jnp.all(done))
+        it, done = c[4], c[7]
+        return (it < cfg.n_outer) & ~jnp.all(done)
 
     def outer_body(c):
-        Xtail_l, U_l, lam, mu, it, inner_tot, outer_vec, done = c
+        X, U, lam, mu, it, inner_tot, outer_vec, done = c
         outer_vec = outer_vec + (~done).astype(jnp.int32)
-        lam_l = _to_lane(lam, tiles)
-        mu_l = _to_lane(mu[:, None], tiles)
-        Xtail_l, U_l, iters = inner(Xtail_l, U_l, lam_l, mu_l)
-        _, _, cmask = constraints_std(Xtail_l, U_l)
+        X, U, iters = inner(ocp_b, cfg, X, U, lam, mu, done)
+        cmask = _vm(lambda o, x, u: P.masked_trajectory_constraints(o, x, u),
+                    ocp_b, X, U)
         viol = jnp.maximum(0.0, -jnp.min(cmask, axis=(1, 2)))
         lam_new = jnp.clip(
             jnp.maximum(0.0, lam - mu[:, None, None] * cmask), 0.0, cfg.lam_max
         )
         newly = viol < cfg.tol_con
-        lam = jnp.where(done[:, None, None], lam, lam_new)
+        lam = _sel(done, lam, lam_new)
         mu = jnp.where(done | newly, mu, jnp.minimum(mu * cfg.mu_factor, cfg.mu_max))
-        done = done | newly
-        return (Xtail_l, U_l, lam, mu, it + 1, inner_tot + iters, outer_vec, done)
+        return (X, U, lam, mu, it + 1, inner_tot + iters, outer_vec, done | newly)
 
-    zero = jnp.zeros((), jnp.int32)
-    zero_vec = jnp.zeros((Bt,), jnp.int32)
-    Xtail_l, U_l, lam, mu, _, inner_tot, outer_vec, done = jax.lax.while_loop(
+    zero_vec = jnp.zeros((B,), jnp.int32)
+    X, U, lam, mu, _, inner_tot, outer_vec, done = jax.lax.while_loop(
         outer_cond, outer_body,
-        (Xtail_l, U_l, lam, mu, zero, zero_vec, zero_vec, jnp.zeros((Bt,), bool)),
+        (X, U, lam, mu, jnp.zeros((), jnp.int32), zero_vec, zero_vec,
+         jnp.zeros((B,), bool)),
     )
-
-    U = _from_lane(U_l, Bt)
-    X = jnp.concatenate([ocp_b.x0[:, None], _from_lane(Xtail_l, Bt)], axis=1)
     X, U, cost, viol = _finalize(ocp_b, X, U, cfg)
-    trim = lambda a: a[:B]
     return SolveResult(
-        X=trim(X), U=trim(U), lam=trim(lam), mu=trim(mu),
-        cost=trim(cost), viol=trim(viol),
-        inner_iters=trim(inner_tot),
-        outer_iters=trim(outer_vec),
-        converged=trim(done),
+        X=X, U=U, lam=lam, mu=mu, cost=cost, viol=viol,
+        inner_iters=inner_tot, outer_iters=outer_vec, converged=done,
     )
 
 
-def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig, B: int, Bt: int) -> SolveResult:
-    """Megakernel path: the whole inner iLQR solve is ONE Pallas program per
-    AL outer step (ops/megasolve_pallas.py) — expansions are recomputed
-    on-the-fly in VMEM and never touch HBM. The AL multiplier update between
-    outer steps is a second lane-major kernel (al_update_lanes), so lam never
-    leaves the lane layout inside the loop — zero transposes per outer step.
-    Matches the staged lane pipeline (verified)."""
-    from nmpc_tpu.ops.megasolve_pallas import al_update_lanes
-
-    N, n, mc = ocp_b.N, ocp_b.nx, ocp_b.nu
-    dtype = ocp_b.x0.dtype
-    tiles = Bt // LANES
-
-    mov_l = _mov_lanes(ocp_b, Bt, tiles)
-    x0_l = _to_lane(ocp_b.x0[:, None], tiles)
-    xref_l = _to_lane(ocp_b.xref, tiles)
-    U_l = _to_lane(U, tiles)
-    lam_l = _to_lane(lam, tiles)
-    Xs_l = jnp.zeros((tiles, N, n, LANES), dtype)
-
-    def lane_vec(a_l):  # [t, 1, L] -> [Bt]
-        return _from_lane(a_l[:, None], Bt)[:, 0, 0]
-
-    def constraints_std(Xs_l, U_l):
-        Xs = _from_lane(Xs_l, Bt)
-        U = _from_lane(U_l, Bt)
-        X_full = jnp.concatenate([Xs, Xs[:, -1:]], axis=1)
-        return Xs, U, _vm(lambda o, x, u: P.masked_trajectory_constraints(o, x, u),
-                          ocp_b, X_full, U)
-
-    x0_std = ocp_b.x0
-    xref_std = ocp_b.xref
-    if x0_std.shape[0] != Bt:  # pad the standard-layout problem data once
-        padn = Bt - x0_std.shape[0]
-        x0_std = jnp.concatenate([x0_std, jnp.repeat(x0_std[-1:], padn, 0)], 0)
-        xref_std = jnp.concatenate(
-            [xref_std, jnp.repeat(xref_std[-1:], padn, 0)], 0)
-    mov_std = None
-    if ocp_b.n_mov and ocp_b.mov_obs.ndim == 4:
-        mov_std = ocp_b.mov_obs.reshape(-1, ocp_b.N, 2 * ocp_b.n_mov)
-        if mov_std.shape[0] != Bt:
-            mov_std = jnp.concatenate(
-                [mov_std, jnp.repeat(mov_std[-1:], Bt - mov_std.shape[0], 0)], 0)
-
-    def outer_cond(c):
-        _, _, _, _, it, _, _, done, _ = c
-        return (it < cfg.n_outer) & (~jnp.all(done))
-
-    def outer_body(c):
-        Xs_l, U_l, lam_l, mu, it, inner_tot, outer_vec, done, perm = c
-        x0_k, xref_k, mov_k = x0_l, xref_l, mov_l
-        if cfg.compact:
-            # Tile compaction (VERDICT r4 ask #7): pack unconverged lanes
-            # into dense leading tiles so trailing all-converged tiles
-            # exit the fused inner solve after one no-op iteration. The
-            # permutation composes across outer steps (`perm` maps current
-            # lane position -> original element); problem data is gathered
-            # from the padded standard layout each pass, outputs are
-            # inverse-permuted after the loop. lax.cond skips the whole
-            # shuffle while nothing has converged yet (the first 3-4 outer
-            # steps on the bench profile — the sort would be the identity).
-            def _shuffle(args):
-                Xs_l, U_l, lam_l, mu, done, inner_tot, outer_vec, perm = args
-                order = jnp.argsort(done)  # live lanes (False) first
-                perm = perm[order]
-                Xs_l, U_l, lam_l = (
-                    _to_lane(_from_lane(a, Bt)[order], tiles)
-                    for a in (Xs_l, U_l, lam_l))
-                mu, done, inner_tot, outer_vec = (
-                    a[order] for a in (mu, done, inner_tot, outer_vec))
-                return Xs_l, U_l, lam_l, mu, done, inner_tot, outer_vec, perm
-
-            (Xs_l, U_l, lam_l, mu, done, inner_tot, outer_vec,
-             perm) = jax.lax.cond(
-                jnp.any(done), _shuffle, lambda a: a,
-                (Xs_l, U_l, lam_l, mu, done, inner_tot, outer_vec, perm))
-            x0_k = _to_lane(x0_std[perm][:, None], tiles)
-            xref_k = _to_lane(xref_std[perm], tiles)
-            if mov_std is not None:
-                mov_k = _to_lane(mov_std[perm], tiles)
-        outer_vec = outer_vec + (~done).astype(jnp.int32)
-        mu_l = _to_lane(mu[:, None], tiles)
-        Xs_l, U_l, _, iters_l = inner_solve_fused(
-            ocp_b, x0_k, xref_k, lam_l, mu_l, U_l, cfg, mov_k
-        )
-        # per-element inner-iteration counts (the megakernel counts per lane;
-        # already-converged elements re-run a no-op pass — don't count it)
-        iters = jnp.where(done, 0, lane_vec(iters_l).astype(jnp.int32))
-        lam_new_l, viol_l = al_update_lanes(
-            ocp_b, Xs_l, U_l, lam_l, mu_l, cfg.lam_max, mov_k
-        )
-        viol = lane_vec(viol_l)
-        newly = viol < cfg.tol_con
-        done_l = _to_lane(done[:, None].astype(dtype), tiles)[:, :, None, :]
-        lam_l = jnp.where(done_l > 0.5, lam_l, lam_new_l)
-        mu = jnp.where(done | newly, mu, jnp.minimum(mu * cfg.mu_factor, cfg.mu_max))
-        done = done | newly
-        return (Xs_l, U_l, lam_l, mu, it + 1, inner_tot + iters, outer_vec,
-                done, perm)
-
-    zero = jnp.zeros((), jnp.int32)
-    zero_vec = jnp.zeros((Bt,), jnp.int32)
-    Xs_l, U_l, lam_l, mu, _, inner_tot, outer_vec, done, perm = jax.lax.while_loop(
-        outer_cond, outer_body,
-        (Xs_l, U_l, lam_l, mu, zero, zero_vec, zero_vec,
-         jnp.zeros((Bt,), bool), jnp.arange(Bt, dtype=jnp.int32)),
-    )
-
-    lam = _from_lane(lam_l, Bt)
-    Xs = _from_lane(Xs_l, Bt)
-    U = _from_lane(U_l, Bt)
-    if cfg.compact:
-        # undo the accumulated lane permutation so outputs line up with the
-        # caller's element order (and with ocp_b's per-element leaves, which
-        # _finalize consumes below)
-        inv = jnp.argsort(perm)
-        lam, Xs, U = lam[inv], Xs[inv], U[inv]
-        mu, inner_tot, outer_vec, done = (
-            a[inv] for a in (mu, inner_tot, outer_vec, done))
-    # terminal state for the full trajectory output
-    xN = jax.vmap(lambda o, x, u: P.step_dynamics(o, x, u),
-                  in_axes=(None, 0, 0))(
-        dataclasses.replace(ocp_b, x0=ocp_b.x0[0], xref=ocp_b.xref[0]),
-        Xs[:, -1], U[:, -1])
-    X = jnp.concatenate([Xs, xN[:, None]], axis=1)
-    X, U, cost, viol = _finalize(ocp_b, X, U, cfg)
-    trim = lambda a: a[:B]
-    return SolveResult(
-        X=trim(X), U=trim(U), lam=trim(lam), mu=trim(mu),
-        cost=trim(cost), viol=trim(viol),
-        inner_iters=trim(inner_tot),
-        outer_iters=trim(outer_vec),
-        converged=trim(done),
-    )
-
-
-def _polar_seed(ocp_b: OCP, Bt: int) -> jax.Array:
+def _polar_seed(ocp_b: OCP) -> jax.Array:
     """Cold-start controls from a per-robot polar go-to-goal law rolled
     through the model (ALILQRConfig.cold_seed='polar').
 
@@ -400,27 +353,23 @@ def _polar_seed(ocp_b: OCP, Bt: int) -> jax.Array:
     the AL loop: the seed ignores constraints on purpose (lam starts at 0
     and mu at mu_init, exactly as with a zero seed).
 
-    MEASURED (round 4, six-robot antipodal N=10): the seed does NOT reduce
+    MEASURED (six-robot antipodal N=10, CPU): the seed does NOT reduce
     iterations — mean inner iterations are unchanged (45.2 with either
-    seed at B=64 CPU; identical mean at B=8 with explicit warm starts,
-    costs differing only in the 6th digit). The solve's iterations are
-    spent resolving the constraint-coupled crossing, not rebuilding motion
-    from rest, so a goal-directed unconstrained seed buys nothing on the
+    seed at B=64; identical mean at B=8 with explicit warm starts, costs
+    differing only in the 6th digit). The solve's iterations are spent
+    resolving the constraint-coupled crossing, not rebuilding motion from
+    rest, so a goal-directed unconstrained seed buys nothing on the
     collision configs. Kept as an option for unconstrained/waypoint
-    problem classes; the bench stays on the reference-faithful zero seed.
-    (Related measured negative, same experiment: mu_init=100 cuts mean
-    inner iterations 22% at intact conv/viol, but megakernel throughput is
-    FLAT at B=32768 — executed work is bounded by each 128-lane tile's
-    straggler, not the mean. tools/_tmp_bench_mu.py-style A/B, v5e.)"""
-    m = ocp_b.m
-    N = ocp_b.N
-    goal = ocp_b.xref[:, -1, :]                       # [Bt, nx]
-    gp = goal[:, : 3 * m].reshape(Bt, m, 3)
+    problem classes; the fleet benchmark stays on the reference-faithful
+    zero seed."""
+    B, m = ocp_b.x0.shape[0], ocp_b.m
+    goal = ocp_b.xref[:, -1, :]                       # [B, nx]
+    gp = goal[:, : 3 * m].reshape(B, m, 3)
     v_hi = ocp_b.u_hi[0:: 2][:m]
     w_hi = ocp_b.u_hi[1:: 2][:m]
 
     def step(x, _):
-        pose = x[:, : 3 * m].reshape(Bt, m, 3)
+        pose = x[:, : 3 * m].reshape(B, m, 3)
         ex = gp[..., 0] - pose[..., 0]
         ey = gp[..., 1] - pose[..., 1]
         dist = jnp.hypot(ex, ey)
@@ -430,199 +379,10 @@ def _polar_seed(ocp_b: OCP, Bt: int) -> jax.Array:
         v = jnp.clip(1.5 * dist * jnp.cos(delta), -v_hi, v_hi)
         v = jnp.where(jnp.abs(delta) < 1.2, v, 0.0)
         w = jnp.clip(1.5 * delta, -w_hi, w_hi)
-        u = jnp.stack([v, w], axis=-1).reshape(Bt, 2 * m)
+        u = jnp.stack([v, w], axis=-1).reshape(B, 2 * m)
         xn = _vm(lambda o, xx, uu: P.step_dynamics(o, xx, uu),
                  dataclasses.replace(ocp_b, x0=x), x, u)
         return xn, u
 
-    _, U = jax.lax.scan(step, ocp_b.x0, None, length=N)
-    return jnp.swapaxes(U, 0, 1)                      # [Bt, N, nu]
-
-
-def solve_one(
-    ocp: OCP,
-    warm: WarmStart | None = None,
-    cfg: ALILQRConfig = ALILQRConfig(),
-) -> SolveResult:
-    """Single-scenario solve routed through the batch-native fused path.
-
-    B=1 pads to one 128-lane tile (127 lanes idle) but the whole inner iLQR
-    solve runs as one Pallas program per AL outer step, so warm latency is
-    bounded by a handful of kernel launches instead of O(N) sequential XLA
-    ops — the low-latency engine for the closed-loop MPC drivers
-    (SURVEY.md §6's per-step budget T). Interface matches solver.alilqr.solve
-    (unbatched OCP/WarmStart in, unbatched SolveResult out)."""
-    ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
-    warm_b = None if warm is None else jax.tree.map(lambda a: jnp.asarray(a)[None], warm)
-    res = solve_batched(ocp_b, warm_b, cfg)
-    return jax.tree.map(lambda a: a[0], res)
-
-
-def solve_batched(
-    ocp_b: OCP,
-    warm: WarmStart | None = None,
-    cfg: ALILQRConfig = ALILQRConfig(),
-) -> SolveResult:
-    """Solve a batch of OCPs (batch axis on x0/xref). Jit-able; cfg static."""
-    B = ocp_b.x0.shape[0]
-    N, nu, nc = ocp_b.N, ocp_b.nu, ocp_b.n_con
-    dtype = ocp_b.x0.dtype
-    pad = (-B) % LANES
-    if pad:
-        ext = lambda a: jnp.concatenate([a, jnp.repeat(a[-1:], pad, 0)], 0)
-        ocp_b = dataclasses.replace(
-            ocp_b, **{f: ext(getattr(ocp_b, f)) for f in _batch_fields(ocp_b)}
-        )
-        if warm is not None:
-            warm = jax.tree.map(lambda a: ext(a), warm)
-    Bt = B + pad
-
-    if warm is None:
-        if cfg.cold_seed == "polar" and ocp_b.num_rays == 0:
-            U0 = _polar_seed(ocp_b, Bt)
-        else:
-            U0 = jnp.zeros((Bt, N, nu), dtype)
-        warm = WarmStart(
-            U=U0,
-            lam=jnp.zeros((Bt, N, nc), dtype),
-            mu=jnp.full((Bt,), cfg.mu_init, dtype),
-        )
-    U, lam, mu = warm.U, warm.lam, warm.mu
-    sweep = _resolve_sweep(cfg, ocp_b.N, B)
-    use_pallas_ls = rollout_pallas.supports(ocp_b)
-    if use_pallas_ls and sweep != "scan":
-        from nmpc_tpu.ops.megasolve_pallas import mega_fits
-
-        if cfg.mega and mega_fits(ocp_b):
-            return _solve_mega(ocp_b, U, lam, mu, cfg, B, Bt)
-        # staged lane-major fused path (comparison/debug, and the fallback
-        # for shapes whose whole-solve VMEM footprint exceeds the core budget)
-        return _solve_lanes(ocp_b, U, lam, mu, cfg, B, Bt)
-    # sweep == "scan" on a supported problem runs the hybrid below: fused
-    # Pallas line-search/rollout kernels around the O(log N) associative-scan
-    # backward pass (the Pallas sweeps are sequential in N by construction)
-    mov_b = None
-    if ocp_b.n_mov and use_pallas_ls:
-        mov_b = ocp_b.mov_obs
-        if mov_b.ndim == 3:
-            mov_b = jnp.broadcast_to(mov_b[None], (Bt, *mov_b.shape))
-    X = _rollout_b(ocp_b, U)
-    alphas = jnp.asarray(cfg.alphas, dtype)
-    ls_alphas = (0.0,) + tuple(cfg.alphas)  # row 0 = current-iterate merit
-
-    def inner(X, U, lam, mu):
-        # with the fused line-search kernel the current-iterate merit comes
-        # out of the kernel itself (alpha-0 row) every iteration — don't pay
-        # the sequential XLA rollout for it here
-        cost0 = (jnp.zeros((Bt,), dtype) if use_pallas_ls
-                 else _al_cost_b(ocp_b, X, U, lam, mu))
-
-        def cond(c):
-            _, _, _, it, _, done = c
-            return (it < cfg.n_inner) & (~jnp.all(done))
-
-        def body(c):
-            X, U, cost, it, it_vec, done = c
-            it_vec = it_vec + (~done).astype(jnp.int32)
-            A, Bm, lx, lu, lxx, luu, lux = _expansions(ocp_b, X, U, lam, mu)
-            if sweep == "scan":
-                # horizon-parallel backward pass: O(log N) depth
-                # (ops/assoc_lqr.py) instead of an N-step sequential chain
-                from nmpc_tpu.ops.assoc_lqr import parallel_lqr_gains
-
-                regI = cfg.reg * jnp.eye(ocp_b.nu, dtype=dtype)
-
-                def one_scan(A_, B_, lx_, lu_, lxx_, luu_, lux_):
-                    kff_, Kfb_, _, v = parallel_lqr_gains(
-                        A_, B_, jnp.zeros_like(lx_), lxx_, lx_,
-                        luu_ + regI, lu_, lux_
-                    )
-                    Qu = lu_ - jnp.einsum("knm,kn->km", B_, v[1:])
-                    return kff_, Kfb_, jnp.sum(kff_ * Qu)
-
-                kff, Kfb, dV1 = jax.vmap(one_scan)(A, Bm, lx, lu, lxx, luu, lux)
-            else:
-                kff, Kfb, dV1 = riccati_fused(A, Bm, lx, lu, lxx, luu, lux, reg=cfg.reg)
-
-            if use_pallas_ls:
-                # fused kernel: all candidate rollouts + merits in one call
-                costs_all = rollout_pallas.linesearch_costs(
-                    ocp_b, ocp_b.x0, X, U, kff, Kfb, ocp_b.xref, lam, mu,
-                    ls_alphas, mov_b
-                )
-                cost_cur, costs = costs_all[0], costs_all[1:]
-            else:
-                cost_cur = cost
-
-                def try_alpha(a):
-                    Xn, Un = _forward_b(ocp_b, X, U, kff, Kfb, jnp.full((Bt,), a, dtype))
-                    return Xn, Un, _al_cost_b(ocp_b, Xn, Un, lam, mu)
-
-                Xs, Us, costs = jax.vmap(try_alpha)(alphas)  # [A, Bt, ...]
-
-            expected = cfg.armijo * alphas[:, None] * jnp.maximum(-dV1, 0.0)[None, :]
-            ok = (cost_cur[None] - costs) >= expected
-            masked = jnp.where(ok, costs, jnp.inf)
-            best = jnp.argmin(masked, axis=0)            # [Bt]
-            take = lambda arr: arr[best, jnp.arange(Bt)]  # per-element best
-            costn = take(costs)
-            okb = ok[best, jnp.arange(Bt)] & (costn < cost_cur)
-            upd = okb & (~done)
-            if use_pallas_ls:
-                alpha_best = jnp.where(upd, alphas[best], 0.0)
-                Xn, Un = rollout_pallas.rollout_alpha(
-                    ocp_b, ocp_b.x0, X, U, kff, Kfb, alpha_best
-                )
-            else:
-                Xn, Un = take(Xs), take(Us)
-                Xn = jnp.where(upd[:, None, None], Xn, X)
-                Un = jnp.where(upd[:, None, None], Un, U)
-            costn = jnp.where(upd, costn, cost_cur)
-            rel = (cost_cur - costn) / (1.0 + jnp.abs(cost_cur))
-            done = done | (~okb) | (rel < cfg.tol_cost)
-            return (Xn, Un, costn, it + 1, it_vec, done)
-
-        X, U, cost, it, it_vec, _ = jax.lax.while_loop(
-            cond, body,
-            (X, U, cost0, jnp.zeros((), jnp.int32),
-             jnp.zeros((Bt,), jnp.int32), jnp.zeros((Bt,), bool)),
-        )
-        return X, U, it_vec
-
-    def outer_cond(c):
-        _, _, _, _, it, _, _, done = c
-        return (it < cfg.n_outer) & (~jnp.all(done))
-
-    def outer_body(c):
-        X, U, lam, mu, it, inner_tot, outer_vec, done = c
-        outer_vec = outer_vec + (~done).astype(jnp.int32)
-        X, U, iters = inner(X, U, lam, mu)
-        cmask = _vm(lambda o, x, u: P.masked_trajectory_constraints(o, x, u), ocp_b, X, U)
-        viol = jnp.maximum(0.0, -jnp.min(cmask, axis=(1, 2)))
-        lam_new = jnp.clip(
-            jnp.maximum(0.0, lam - mu[:, None, None] * cmask), 0.0, cfg.lam_max
-        )
-        newly = viol < cfg.tol_con
-        lam = jnp.where(done[:, None, None], lam, lam_new)
-        mu = jnp.where(
-            done | newly, mu, jnp.minimum(mu * cfg.mu_factor, cfg.mu_max)
-        )
-        done = done | newly
-        return (X, U, lam, mu, it + 1, inner_tot + iters, outer_vec, done)
-
-    zero = jnp.zeros((), jnp.int32)
-    zero_vec = jnp.zeros((Bt,), jnp.int32)
-    X, U, lam, mu, _, inner_tot, outer_vec, done = jax.lax.while_loop(
-        outer_cond, outer_body,
-        (X, U, lam, mu, zero, zero_vec, zero_vec, jnp.zeros((Bt,), bool)),
-    )
-
-    X, U, cost, viol = _finalize(ocp_b, X, U, cfg)
-    trim = lambda a: a[:B]
-    return SolveResult(
-        X=trim(X), U=trim(U), lam=trim(lam), mu=trim(mu),
-        cost=trim(cost), viol=trim(viol),
-        inner_iters=trim(inner_tot),
-        outer_iters=trim(outer_vec),
-        converged=trim(done),
-    )
+    _, U = jax.lax.scan(step, ocp_b.x0, None, length=ocp_b.N)
+    return jnp.swapaxes(U, 0, 1)                      # [B, N, nu]

@@ -10,8 +10,8 @@ The reference has two solver families beyond the stagewise NLPs:
 Move blocking breaks the stagewise structure the Riccati sweep exploits, so
 this solver takes the condensed route: decision = U_blk [Nc, nu], states
 eliminated by the exact rollout, one dense Gauss-Newton system of size
-Nc*nu (<= ~200) per iteration — a single batched-friendly Cholesky that maps
-straight onto the MXU when vmapped over scenarios. The augmented-Lagrangian
+Nc*nu (<= ~200) per iteration — a single batched Cholesky when vmapped
+over scenarios. The augmented-Lagrangian
 outer loop and the PHR penalty are shared with the iLQR engine, and it
 returns the same SolveResult/WarmStart pytrees so every MPC driver can swap
 it in via `solve_fn`.
@@ -112,8 +112,8 @@ def _normal_scan(ocp: OCP, U_blk, lam, mu, Nc: int):
     J_k = dr_k/dx . S_k + dr_k/du . E_k. J itself ([n_res, nz]) is never
     materialized — this is what lifts the batched lidar_v4 fleet past the
     B~1024 HBM ceiling of the dense form (VERDICT r2 weak #6). The per-stage
-    products are small GEMMs ([rows, nx] x [nx, nz] etc.) that batch onto
-    the MXU under vmap. Returns (H [nz, nz], g [nz])."""
+    products are small GEMMs ([rows, nx] x [nx, nz] etc.) that batch
+    under vmap. Returns (H [nz, nz], g [nz])."""
     from nmpc_tpu.solver.alilqr import _stage_jacobians
 
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
@@ -244,8 +244,8 @@ def solve_batched(ocp_b: OCP, warm: WarmStart | None = None,
 
     This is the family-I (LiDAR v4) fleet engine: the per-iteration work is
     one dense [B, Nc*nu, Nc*nu] Cholesky plus batched residual/Jacobian
-    evaluations — large batched GEMMs that map straight onto the MXU, unlike
-    the ray-augmented stagewise path the Pallas kernels exclude
+    evaluations — large batched GEMMs; the ray-augmented class is outside
+    the stagewise kernel's problem class
     (obs_avoid_static_first_scenario_v4.py:59-75)."""
     from nmpc_tpu.solver.alilqr_batched import _batch_fields
 

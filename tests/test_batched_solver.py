@@ -1,4 +1,4 @@
-"""Batch-native solver (Pallas backward) equivalence with the vmapped engine."""
+"""Batch-native solver equivalence with the per-scenario engine."""
 
 import dataclasses
 import functools
@@ -6,7 +6,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from nmpc_tpu.parallel.batch import batch_ocp
 from nmpc_tpu.scenarios import get
@@ -27,16 +26,16 @@ def test_batch_native_matches_vmap():
     rv = jax.jit(
         jax.vmap(lambda x0: solve(dataclasses.replace(base, x0=x0), cfg=CFG))
     )(x0s)
-    # costs agree tightly; controls to trajectory tolerance (the fused
-    # line-search kernel sums the merit in a different order, which can flip
-    # near-tied alpha picks along the way)
+    # costs agree tightly; controls to trajectory tolerance (batched and
+    # per-scenario programs may sum the merit in a different order, which
+    # can flip near-tied alpha picks along the way)
     np.testing.assert_allclose(np.array(rb.cost), np.array(rv.cost), rtol=1e-4)
     np.testing.assert_allclose(np.array(rb.U), np.array(rv.U), atol=5e-3)
     assert bool(jnp.all(rb.converged))
 
 
 def test_batch_padding_to_lane_tile():
-    # B=3 is padded to 128 internally and trimmed back
+    # an odd batch size solves and keeps its shape (no tile padding)
     base = get("single_robot").make(N=10)
     x0s = jnp.stack([base.x0, base.x0 + 0.1, base.x0 - 0.1])
     ob = batch_ocp(base, x0s)
@@ -46,12 +45,10 @@ def test_batch_padding_to_lane_tile():
 
 
 def test_batched_moving_obstacles_fused_path():
-    """Moving-obstacle rows ride the fused Pallas class (round-2 lift of the
-    n_mov gate — the decentralized subproblems are exactly the small-shape
-    solves the megakernel was built for). Fused results must match the
-    per-scenario XLA engine on a problem where the keep-out disc is ACTIVE
-    (obstacle parked between start and goal)."""
-    from nmpc_tpu.ops.rollout_pallas import supports
+    """Per-element moving-obstacle rows (the decentralized subproblems):
+    batched results must match the per-scenario engine on a problem where
+    the keep-out disc is ACTIVE (obstacle parked between start and goal)."""
+    from nmpc_tpu.solver.alilqr_batched import supports
     from nmpc_tpu.parallel.decentralized import robot_template
 
     tpl = robot_template(8, 0.1, 0.3, 3)  # n_mov = 2 slots
@@ -87,7 +84,7 @@ def test_batched_moving_obstacles_fused_path():
 
 
 def test_solve_one_matches_per_scenario_solve():
-    """solve_one (B=1 fused megakernel path) matches the per-scenario engine
+    """solve_one (the batched engine at B=1) matches the per-scenario engine
     on the two-robot collision config — the low-latency MPC engine must be a
     drop-in for solver.alilqr.solve."""
     from nmpc_tpu.solver.alilqr_batched import solve_one
@@ -112,44 +109,6 @@ def test_solve_one_warm_start_roundtrip():
     res2 = jax.jit(functools.partial(solve_one, cfg=CFG))(ocp, warm)
     assert res2.U.shape == (10, 2)
     assert float(res2.viol) < 1e-3
-
-
-def test_mega_vmem_gate_admits_all_fused_class_registry_shapes():
-    """The structured backward sweep removed the dense-A/B register spill,
-    so every fused-class registry shape — including five-robot N=70 and
-    ten-robot N=20, previously staged-lanes-only — fits the megakernel's
-    VMEM gate (verified to compile and solve on v5e hardware)."""
-    from nmpc_tpu.ops.megasolve_pallas import mega_fits
-    from nmpc_tpu.ops.rollout_pallas import supports
-
-    for name in ("single_robot", "tb3_1", "two_robot_swap", "five_robot",
-                 "six_robot_antipodal", "eight_robot", "ten_robot"):
-        ocp = get(name).make()
-        assert supports(ocp), name
-        assert mega_fits(ocp), name
-
-
-@pytest.mark.tpu
-def test_mega_gate_admission_compiles_on_hardware():
-    """The gate's admission is exercised for real: every shape mega_fits
-    admits must actually compile (Mosaic scoped-VMEM) and solve on the chip.
-    Covers the failure mode the static-estimate test above cannot: the spill
-    heuristic drifting from real compiler demand. Run with
-    `NMPC_TPU_TESTS=1 python -m pytest tests/test_batched_solver.py -m tpu`."""
-    import pytest as _pytest
-
-    if jax.default_backend() != "tpu":
-        _pytest.skip("needs a real TPU (set NMPC_TPU_TESTS=1)")
-    from nmpc_tpu.ops.megasolve_pallas import mega_fits
-
-    cfg = ALILQRConfig(n_outer=2, n_inner=4, tol_con=1e-3)
-    # the two near-gate shapes (largest estimates) plus the headline config
-    for name in ("five_robot", "ten_robot", "six_robot_antipodal"):
-        ocp = get(name).make()
-        assert mega_fits(ocp), name
-        ob = batch_ocp(ocp, ocp.x0[None])
-        res = jax.jit(functools.partial(solve_batched, cfg=cfg))(ob)
-        assert np.isfinite(float(res.cost[0])), name
 
 
 def test_per_element_iteration_counts():
@@ -180,29 +139,11 @@ def test_per_element_iteration_counts():
     assert int(r2.inner_iters[0]) < int(r2.inner_iters[2])
 
 
-def test_per_element_iteration_counts_fallback_path():
-    """Same observability contract on the XLA fallback path (moving
-    obstacles -> outside the fused class)."""
-    from nmpc_tpu.parallel.decentralized import robot_template
-
-    tpl = robot_template(8, 0.1, 0.3, 2)  # n_mov = 1 slot
-    x0s = jnp.asarray([[-0.5, 0, 0], [-0.4, 0.2, 0]], jnp.float32)
-    goals = jnp.tile(jnp.asarray([[0.6, 0.0, 0.0]], jnp.float32), (2, 1))
-    ob = batch_ocp(
-        dataclasses.replace(tpl, mov_obs=jnp.full((8, 1, 2), 5.0, jnp.float32)),
-        x0s, jnp.tile(goals[:, None, :], (1, 8, 1)),
-    )
-    r = jax.jit(functools.partial(solve_batched, cfg=CFG))(ob)
-    assert r.inner_iters.shape == (2,)
-    assert int(jnp.min(r.inner_iters)) >= 1
-
-
 def test_batched_scan_sweep_matches_seq():
-    """sweep='scan' (hybrid: fused Pallas line search around the O(log N)
-    associative-scan backward pass) matches the sequential production path;
-    sweep='auto' resolves to seq at every reference shape (docs/SWEEP.md:
-    measured 2-3 orders of magnitude in seq's favor on v5e)."""
-    from nmpc_tpu.solver.alilqr_batched import _resolve_sweep
+    """sweep='scan' (the O(log N) associative-scan backward pass) matches
+    the sequential sweep; sweep='auto' resolves to seq at every reference
+    shape (SCAN_N_MIN)."""
+    from nmpc_tpu.solver.alilqr import resolve_sweep
 
     base = get("two_robot_swap").make(N=12)
     x0s = base.x0[None] + 0.05 * jax.random.normal(
@@ -214,17 +155,16 @@ def test_batched_scan_sweep_matches_seq():
     rq = jax.jit(functools.partial(solve_batched, cfg=CFG))(ob)
     np.testing.assert_allclose(np.array(rs.cost), np.array(rq.cost), rtol=1e-4)
     np.testing.assert_allclose(np.array(rs.U), np.array(rq.U), atol=5e-3)
-    assert _resolve_sweep(dataclasses.replace(CFG, sweep="auto"), 200, 1) == "seq"
-    assert _resolve_sweep(dataclasses.replace(CFG, sweep="scan"), 10, 1) == "scan"
+    assert resolve_sweep(dataclasses.replace(CFG, sweep="auto"), 200) == "seq"
+    assert resolve_sweep(dataclasses.replace(CFG, sweep="scan"), 10) == "scan"
 
 
 def test_adaptive_line_search_matches_or_beats_cascade():
-    """ls='adaptive' (carried per-lane trial step, fail-continue) must hold
+    """ls='adaptive' (carried per-element trial step, fail-continue) must hold
     the cascade's solution quality on the bench problem class: convergence
     rate and violation statistics at least as good, mean cost within f32
-    tolerance. The adaptive search is the round-3 throughput lever — typical
-    iterations pay ls_rounds=2 merit evaluations instead of 8 (the measured
-    line-search bound, STATUS.md)."""
+    tolerance. Typical adaptive iterations pay ls_rounds=2 merit evaluations
+    instead of the cascade's 8."""
     base = get("six_robot_antipodal").make(N=10)
     B = 128
     x0s = base.x0[None] + 0.1 * jax.random.normal(
@@ -260,54 +200,3 @@ def test_deep_alpha_grid_escapes_box_stall():
     assert float(r_deep.cost) < float(r_old.cost) - 10.0
     assert float(r_deep.viol) < 1e-4
     assert bool(r_deep.converged)
-
-
-def test_ten_robot_scatter_expansion_path_matches_xla():
-    """m > _MAT_EXPANSION_MAX_M dispatches the megakernel to the round-3
-    per-entry scatter expansions (the matrix form loses ~6% at m=10 —
-    megasolve_pallas dispatch note). The large-m path must keep matching
-    the per-scenario XLA engine."""
-    from nmpc_tpu.ops.megasolve_pallas import _MAT_EXPANSION_MAX_M
-
-    base = get("ten_robot").make(N=8)
-    assert base.m > _MAT_EXPANSION_MAX_M
-    B = 2
-    x0s = base.x0[None] + 0.05 * jax.random.normal(
-        jax.random.PRNGKey(0), (B, base.nx), base.x0.dtype)
-    ob = batch_ocp(base, x0s)
-    cfg = ALILQRConfig(n_outer=3, n_inner=6, tol_con=1e-3)
-    rb = jax.jit(functools.partial(solve_batched, cfg=cfg))(ob)
-    rv = jax.jit(jax.vmap(lambda x0: solve(
-        dataclasses.replace(base, x0=x0), cfg=cfg)))(ob.x0)
-    np.testing.assert_allclose(np.array(rb.cost), np.array(rv.cost), rtol=5e-4)
-    np.testing.assert_allclose(np.array(rb.viol), np.array(rv.viol), atol=1e-3)
-    np.testing.assert_allclose(np.array(rb.U), np.array(rv.U), atol=2e-2)
-
-
-def test_compact_mode_is_element_wise_identical():
-    """ALILQRConfig.compact (tile compaction at AL outer boundaries —
-    VERDICT r4 ask #7) must be a pure scheduling change: outputs, iteration
-    counts, and convergence flags element-wise IDENTICAL to the baseline
-    (the permutation is undone before packaging; per-lane math does not
-    depend on tile position). Kept as a measured NEGATIVE for throughput:
-    at the bench shape (B=32768, v5e) compaction measured 5-8% SLOWER —
-    the lane-major gather/transpose per outer step costs more than the
-    near-empty trailing outer passes it saves (docs/ROOFLINE.md)."""
-    import functools
-
-    from nmpc_tpu.parallel.batch import batch_ocp
-
-    base = get("six_robot_antipodal").make(N=8)
-    B = 160
-    key = jax.random.PRNGKey(3)
-    x0s = base.x0[None] + 0.08 * jax.random.normal(key, (B, base.nx), base.x0.dtype)
-    ob = batch_ocp(base, x0s)
-    cfg = ALILQRConfig(n_outer=5, n_inner=8)
-    r0 = jax.jit(functools.partial(solve_batched, cfg=cfg))(ob)
-    r1 = jax.jit(functools.partial(
-        solve_batched, cfg=dataclasses.replace(cfg, compact=True)))(ob)
-    for name in ("U", "cost", "viol", "lam", "mu", "inner_iters",
-                 "outer_iters", "converged"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(r0, name)), np.asarray(getattr(r1, name)),
-            err_msg=f"compact changed {name}")

@@ -96,8 +96,8 @@ def test_consensus_sharded_matches_single_program():
     np.testing.assert_allclose(np.array(v2), np.array(v1), atol=1e-5)
     np.testing.assert_allclose(np.array(d2), np.array(d1), atol=1e-5)
 
-    # fused engines both sides (the production pairing, round 3): each chip
-    # solves its whole shard as megakernel lanes; must match the fused
+    # batch-native engines both sides (the production pairing): each device
+    # solves its whole shard as one batch; must match the batched
     # single-program form the same way the XLA pair matches
     Xf, Uf, _, _, vf, df = jax.jit(functools.partial(
         consensus_solve, cfg=cfg, rounds=3, damping=0.5, engine="fused",
@@ -189,8 +189,8 @@ def test_consensus_closed_loop_ten_robot():
 
 
 def test_consensus_fused_engine_matches_xla():
-    # the deployment default (engine='fused': robots on megakernel lanes,
-    # neighbor plans as per-element mov_obs VMEM inputs) must track the
+    # the deployment default (engine='fused': robots on the batch axis,
+    # neighbor plans as per-element mov_obs inputs) must track the
     # vmapped per-scenario path through the same consensus rounds
     m, N, T, dmin = 3, 10, 0.1, 0.3
     ang = jnp.arange(m) * (2 * np.pi / m)
@@ -206,7 +206,7 @@ def test_consensus_fused_engine_matches_xla():
             consensus_solve, cfg=cfg, rounds=3, damping=0.5, engine=eng))(
             tpl, x_joint, goals)
         outs[eng] = (np.array(X), np.array(U), np.array(violh))
-    # engine-level tolerance (megakernel vs XLA sweep) compounds over the
+    # engine-level tolerance (batched vs per-scenario engine) compounds over the
     # 3 rounds; observed max deltas: X ~1e-3, U ~5e-3
     np.testing.assert_allclose(outs["fused"][0], outs["xla"][0], atol=5e-3)
     np.testing.assert_allclose(outs["fused"][1], outs["xla"][1], atol=1e-2)

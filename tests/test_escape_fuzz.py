@@ -120,8 +120,8 @@ def _check_invariants(r, m: int, seeds, noisy: bool = False,
             # AL transient non-additively (the planned pair can ALREADY sit
             # at the transient-eroded ring when the slide starts) and
             # backends legitimately pick different crossing orders:
-            # measured worst erosion 0.072 on TPU, 0.120 on CPU (m=6
-            # seed 20) vs the 0.140 allowance here. The historical law
+            # measured worst erosion 0.120 on CPU (m=6 seed 20) vs the
+            # 0.140 allowance here. The historical law
             # bugs realized 0.008 — still 0.15 below this floor.
             slack += 1.25 * (2 * 0.22 * 0.2)
         assert md >= DMIN - slack, f"{tag}: clearance violated ({md:.3f})"
@@ -161,8 +161,7 @@ def test_escape_law_fuzz_delay(m, seeds):
     (centralized_six_robots_implementation.py's solve-while-moving loop).
     Arrival and bounded theta must survive the lag; realized clearance may
     erode below dmin by at most the one-period closing bound (see
-    _check_invariants). Calibrated round 5 on TPU: all seeds arrive within
-    140 steps, worst erosion 0.072, worst |theta| 5.11."""
+    _check_invariants)."""
     mpc = MPCConfig(max_steps=600, stop_tol=1e-1, escape=True, delay=1)
     r = _batched_loops(m, seeds, mpc)
     _check_invariants(r, m, seeds, delay=True)

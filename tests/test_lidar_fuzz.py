@@ -6,7 +6,7 @@ collision class; this does the same for family I: the v4 formulation
 proximity cost, Nc move blocking — obs_avoid_static_first_scenario_v4.py)
 navigating RANDOMIZED obstacle fields it was never hand-tuned on.
 
-Attribution measured first (round 5, TPU): on random fields the loop
+Attribution measured first: on random fields the loop
 sometimes STALLS short of the goal at a healthy standoff (clearance
 0.22-0.32, far above the 0.15 keep-out). The stalls survive a 2-3x
 stronger GN budget (n_gn 10->20, n_outer 6->8, tol_con 1e-3->1e-4:

@@ -180,7 +180,7 @@ def test_rk4_integrator_closed_loop():
 
 @pytest.mark.slow
 def test_closed_loop_fused_engine():
-    """Driver with solve_fn = batch-native solve_one (B=1 megakernel): the
+    """Driver with solve_fn = batch-native solve_one (B=1): the
     low-latency engine closes the two-robot swap collision-free, matching the
     per-scenario engine's contract."""
     from nmpc_tpu.solver.alilqr_batched import solve_one

@@ -1,13 +1,10 @@
-"""Structured-linear-algebra ops: associative-scan LQR and the Pallas fused
-Riccati sweep (interpret mode on CPU; compiled path exercised on TPU by
-bench/profiling runs)."""
+"""Structured-linear-algebra ops: associative-scan LQR against the
+sequential recursion."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from nmpc_tpu.ops.assoc_lqr import parallel_lqr_gains, sequential_lqr_gains
-from nmpc_tpu.ops.riccati_pallas import riccati_fused
 
 
 def _rand_lqr(key, N, n, m, dtype=jnp.float32):
@@ -44,42 +41,3 @@ def test_parallel_lqr_no_terminal():
     k2, K2, _, _ = parallel_lqr_gains(A, B, c, Qxx, qx, Quu, qu, Qux)
     np.testing.assert_allclose(K1, K2, atol=2e-3)
     np.testing.assert_allclose(k1, k2, atol=2e-3)
-
-
-def test_riccati_fused_matches_reference():
-    rng = np.random.default_rng(0)
-    Bt, N, n, m = 128, 6, 6, 4
-    A = jnp.asarray(rng.normal(size=(Bt, N, n, n)) * 0.2 + np.eye(n), jnp.float32)
-    Bm = jnp.asarray(rng.normal(size=(Bt, N, n, m)) * 0.3, jnp.float32)
-    lx = jnp.asarray(rng.normal(size=(Bt, N, n)), jnp.float32)
-    lu = jnp.asarray(rng.normal(size=(Bt, N, m)), jnp.float32)
-    M = rng.normal(size=(Bt, N, n, n))
-    lxx = jnp.asarray(np.einsum("bnij,bnkj->bnik", M, M) * 0.3 + np.eye(n), jnp.float32)
-    M = rng.normal(size=(Bt, N, m, m))
-    luu = jnp.asarray(np.einsum("bnij,bnkj->bnik", M, M) * 0.3 + np.eye(m), jnp.float32)
-    lux = jnp.asarray(rng.normal(size=(Bt, N, m, n)) * 0.2, jnp.float32)
-
-    def ref_one(A, Bm, lx, lu, lxx, luu, lux, reg=1e-6):
-        def body(carry, inp):
-            Vx, Vxx, dV1 = carry
-            A_k, B_k, lx_k, lu_k, lxx_k, luu_k, lux_k = inp
-            Qu = lu_k + B_k.T @ Vx
-            Qux = lux_k + B_k.T @ Vxx @ A_k
-            Quu = luu_k + B_k.T @ Vxx @ B_k + reg * jnp.eye(m)
-            kff = -jnp.linalg.solve(Quu, Qu)
-            Kfb = -jnp.linalg.solve(Quu, Qux)
-            Vx_n = lx_k + A_k.T @ Vx + Qux.T @ kff
-            Vxx_n = lxx_k + A_k.T @ Vxx @ A_k + Qux.T @ Kfb
-            return (Vx_n, 0.5 * (Vxx_n + Vxx_n.T), dV1 + kff @ Qu), (kff, Kfb)
-
-        (_, _, dV1), (kf, Kf) = jax.lax.scan(
-            body, (jnp.zeros(n), jnp.zeros((n, n)), 0.0),
-            (A, Bm, lx, lu, lxx, luu, lux), reverse=True,
-        )
-        return kf, Kf, dV1
-
-    kr, Kr, dr = jax.vmap(ref_one)(A, Bm, lx, lu, lxx, luu, lux)
-    kp, Kp, dp = riccati_fused(A, Bm, lx, lu, lxx, luu, lux, interpret=True)
-    np.testing.assert_allclose(kr, kp, atol=5e-5)
-    np.testing.assert_allclose(Kr, Kp, atol=5e-5)
-    np.testing.assert_allclose(dr, dp, atol=5e-4)

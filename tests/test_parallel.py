@@ -98,6 +98,15 @@ def test_graft_entry_and_dryrun():
     g.dryrun_multichip(8)
 
 
+def test_dryrun_refuses_too_few_devices():
+    """The multi-device dry run needs the devices it is asked for; it does
+    not fall back to the CPU."""
+    import __graft_entry__ as g
+
+    with pytest.raises(RuntimeError, match="need 16 devices"):
+        g.dryrun_multichip(16)
+
+
 @pytest.mark.slow
 def test_decentralized_six_robot_antipodal():
     """The paper-headline geometry solved in decentralized mode: six 3-state
@@ -123,9 +132,8 @@ def test_decentralized_six_robot_antipodal():
 
 
 def test_decentralized_step_fused_matches_xla():
-    """The fused (megakernel) decentralized round returns the same controls
-    and plans as the vmapped per-scenario XLA engine — the round-2 lift of
-    the n_mov gate on the fused Pallas class."""
+    """The batch-native decentralized round (engine='fused') returns the
+    same controls and plans as the vmapped per-scenario engine."""
     from nmpc_tpu.parallel.decentralized import decentralized_step
 
     m, N = 4, 12
@@ -145,16 +153,14 @@ def test_decentralized_step_fused_matches_xla():
     np.testing.assert_allclose(np.asarray(rf.cost), np.asarray(rx.cost), rtol=5e-4)
     np.testing.assert_allclose(np.asarray(uf), np.asarray(ux), atol=1e-2)
     np.testing.assert_allclose(np.asarray(pf), np.asarray(px), atol=1e-2)
-    # per-element observability survives the fused path
+    # per-element observability survives the batched path
     assert rf.inner_iters.shape == (m,)
     assert int(jnp.min(rf.inner_iters)) >= 1
 
 
 def test_sharded_batch_on_hosts_chips_mesh():
-    """Two-level mesh (SURVEY.md §5.8: ICI within a slice, DCN across
-    hosts): the scenario batch lays out over BOTH axes with no solver
-    change — the multi-host layout is pure sharding metadata, so scaling
-    1 -> N hosts is the same program."""
+    """Two-axis mesh: the scenario batch lays out over BOTH axes with no
+    solver change — the layout is pure sharding metadata."""
     from jax.sharding import Mesh
 
     devs = jax.devices()[:8]
@@ -181,10 +187,9 @@ def test_decentralized_fuzz_random_antipodal(m, seeds):
     bounded theta must hold on geometries the mode was never tuned on.
     Slack mirrors test_escape_fuzz._check_invariants: the rh_bias-inflated
     keep-out absorbs the perception shift, so realized clearance gets the
-    same 3e-2 AL-transient allowance (calibrated round 5 on TPU: worst dip
-    0.020 at m=6, worst |theta| 5.35, all seeds arrive within 400 steps;
-    max_steps budgets 1.5x for float-rounding unwind variation across
-    backends, same rationale as test_decentralized_six_robot_antipodal)."""
+    same 3e-2 AL-transient allowance (max_steps budgets 1.5x for
+    float-rounding unwind variation across backends, same rationale as
+    test_decentralized_six_robot_antipodal)."""
     from test_escape_fuzz import DMIN, _random_geometry
 
     cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)

@@ -79,7 +79,7 @@ def test_rt_closed_loop_two_robot_swap():
     recipe froze at err ~0.32: the cascade line search stalls at carried
     mu_max (fixed: the deep alpha grid in the cascade — rt_closed_loop's
     default drives the per-scenario XLA engine whose LS is the alpha
-    cascade; adaptive LS is a megakernel-path option), and the OCP has a
+    cascade; adaptive LS is a batch-native engine option), and the OCP has a
     stay-put basin at ~0.27 m offsets where the TRUE optimum is a creep
     below the old escape_u_tol, so the parking law never engaged (fixed:
     escape_u_tol=0.02 default). Measured: reached in 1042 steps, min pair

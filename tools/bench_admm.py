@@ -6,113 +6,40 @@ discretization input matrix (gamma(w, Ts) = sin(Ts*w/2)/w, :27-32,88-93),
 re-assembles the sparse QP (sparse.kron layout, :104-114) and re-runs OSQP
 setup+solve every Ts = 0.01 s control period at N = 100 (nz = 503 decision
 vars, 806 rows). This bench runs the SAME per-period work batched: B
-linearizations -> B dense KKT Cholesky factorizations (one batched MXU call)
+linearizations -> B dense KKT Cholesky factorizations (one batched call)
 -> B ADMM solves (batched GEMM + triangular-solve iterations).
 
 Budget: one setup+solve per 10 ms period per robot -> 100 QPs/s/robot.
-Synchronous timing (STATUS.md hardware findings).
+Synchronous timing (a value forced to host after each batch).
 
 Usage: python tools/bench_admm.py [B] [iters]
 """
 
-import functools
 import sys
 import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 sys.path.insert(0, ".")
 
-from nmpc_tpu.solver.admm import (  # noqa: E402
-    ADMMConfig,
-    qp_setup_batched,
-    qp_solve_batched,
-)
-
-NX, NU, N = 3, 2, 100
-TS = 0.01
-BIG = 1e9
-
-
-def gamma(w, Ts):
-    # exact-discretization weight; reference mpc_osqp_test.py:27-32
-    return jnp.where(jnp.abs(w) < 1e-9, Ts / 2, jnp.sin((Ts / 2) * w) / w)
-
-
-def assemble(theta, w):
-    """One linearization -> (A [806, 503], Bd): the reference's kron layout
-    with Ad = I (mpc_osqp_test.py:72-93,104-110)."""
-    g = gamma(w, TS)
-    Bd = jnp.array(
-        [[2 * g * jnp.cos(theta), TS / 2],
-         [2 * g * jnp.sin(theta), TS / 2],
-         [0.0, TS]], jnp.float32)
-    Ax = (-jnp.eye((N + 1) * NX, dtype=jnp.float32)
-          + jnp.kron(jnp.eye(N + 1, k=-1, dtype=jnp.float32),
-                     jnp.eye(NX, dtype=jnp.float32)))
-    Bu = jnp.kron(
-        jnp.concatenate([jnp.zeros((1, N), jnp.float32),
-                         jnp.eye(N, dtype=jnp.float32)], axis=0), Bd)
-    Aeq = jnp.concatenate([Ax, Bu], axis=1)
-    nz = (N + 1) * NX + N * NU
-    return jnp.concatenate([Aeq, jnp.eye(nz, dtype=jnp.float32)], axis=0)
+from nmpc_tpu.scenarios.fleets import ltv_qp_fleet  # noqa: E402
 
 
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-
-    # constant pieces: P (Q=diag(1,5,0.1), R=diag(0.5,0.05), :57-59), boxes
-    Qd = jnp.array([1.0, 5.0, 0.1], jnp.float32)
-    Rd = jnp.array([0.5, 0.05], jnp.float32)
-    nz = (N + 1) * NX + N * NU
-    n_eq = (N + 1) * NX
-    Pdiag = jnp.concatenate([jnp.tile(Qd, N + 1), jnp.tile(Rd, N)])
-    P = jnp.diag(Pdiag)
-    xmin = jnp.array([-BIG, -BIG, -2 * np.pi], jnp.float32)
-    xmax = -xmin
-    umin = jnp.array([-0.22, -1.0], jnp.float32)
-    umax = -umin
-    box_lo = jnp.concatenate([jnp.tile(xmin, N + 1), jnp.tile(umin, N)])
-    box_hi = jnp.concatenate([jnp.tile(xmax, N + 1), jnp.tile(umax, N)])
-    xr = jnp.array([1.0, 1.0, 0.0], jnp.float32)          # goal (:51)
-    q = jnp.concatenate([jnp.tile(-Qd * xr, N + 1), jnp.zeros(N * NU)])
-    cfg = ADMMConfig(max_iter=400)
-
-    def fleet(thetas, ws, x0s):
-        A = jax.vmap(assemble)(thetas, ws)
-        l = jnp.concatenate(
-            [-x0s, jnp.zeros((B, n_eq - NX)),
-             jnp.broadcast_to(box_lo[None], (B, nz))], axis=1)
-        u = jnp.concatenate(
-            [-x0s, jnp.zeros((B, n_eq - NX)),
-             jnp.broadcast_to(box_hi[None], (B, nz))], axis=1)
-        fac = qp_setup_batched(P, A, cfg, l=l, u=u)
-        qs = jnp.broadcast_to(q[None], (B, nz))
-        z, y, its, done, prim = qp_solve_batched(fac, qs, l, u, cfg)
-        return z, its, done, prim
-
-    f = jax.jit(fleet)
     key = jax.random.PRNGKey(0)
-
-    def draw(key):
-        k1, k2, k3 = jax.random.split(key, 3)
-        thetas = jax.random.uniform(k1, (B,), jnp.float32, 0, 2 * np.pi)
-        ws = jax.random.uniform(k2, (B,), jnp.float32, -1.0, 1.0)
-        x0s = 0.3 * jax.random.normal(k3, (B, NX), jnp.float32)
-        return thetas, ws, x0s
-
-    args = draw(key)
+    fleet, args = ltv_qp_fleet(B, key)
+    f = jax.jit(fleet)
     z, its, done, prim = f(*args)
     _ = float(prim[0])  # compile + sync
-    print(f"LTV-MPC QP (reference OSQP config: N={N}, nz={nz}, rows={n_eq + nz}) "
-          f"B={B} backend={jax.default_backend()}")
+    print(f"LTV-MPC QP (reference OSQP config: N=100, nz={z.shape[1]}) "
+          f"B={B} on {jax.devices()[0].device_kind}")
     ts = []
     for _ in range(iters):
         key, sub = jax.random.split(key)
-        a = draw(sub)
+        a = ltv_qp_fleet(B, sub)[1]
         jax.block_until_ready(a)
         t0 = time.perf_counter()
         z, its, done, prim = f(*a)

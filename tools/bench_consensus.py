@@ -4,14 +4,14 @@ Two questions:
   1. What does a jointly-converged consensus solve cost vs the centralized
      joint solve on the paper headline (m=6 antipodal swap)?
   2. How does the consensus step scale with robot count m, beyond the
-     reference's m=10 ceiling? (Robots ride the megakernel lane axis, so a
-     single chip carries the whole fleet until the lane tile fills; the
-     joint NLP the reference would need grows as 3m states x m^2/2 pair
+     reference's m=10 ceiling? (Robots ride the batch axis of the
+     batch-native engine; the joint NLP the reference would need grows as
+     3m states x m^2/2 pair
      rows and is already 1,575 constraint rows at m=10 —
      mpc_online_casadi_tb3_ten_multi_centralized_collision_avoidance.py.)
 
 Per-robot subproblem size is constant in m except the m-1 moving-obstacle
-rows. Synchronous timing (STATUS.md hardware findings).
+rows. Synchronous timing (a value forced to host).
 
 Usage: python tools/bench_consensus.py
 """

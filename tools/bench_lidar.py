@@ -1,11 +1,11 @@
 """Bench: family-I (LiDAR v4) NMPC solves/s via the batched condensed GN.
 
-The ray-augmented problem class is excluded from the fused Pallas kernels
-(1-norm ray dynamics break the structured sweep), so its fleet engine is
-gn.solve_batched: per GN iteration one dense [B, Nc*nu, Nc*nu] Cholesky +
-batched residual/Jacobian GEMMs on the MXU. Config = the published v4
+The ray-augmented problem class with Nc move blocking runs the condensed
+GN engine, gn.solve_batched: per GN iteration one dense [B, Nc*nu, Nc*nu]
+Cholesky + batched residual/Jacobian GEMMs. Config = the published v4
 scenario (obs_avoid_static_first_scenario_v4.py:59-75: N=100, Nc=50,
-10 rays, 1/d cost). Synchronous timing (STATUS.md hardware findings).
+10 rays, 1/d cost; nmpc_tpu.scenarios.fleets.lidar_v4_fleet). Synchronous
+timing (a value forced to host).
 
 Usage: python tools/bench_lidar.py [B] [iters]
 """
@@ -17,51 +17,28 @@ import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 sys.path.insert(0, ".")
 
-from nmpc_tpu.mpc.lidar import obstacle_points, ray_angles  # noqa: E402
-from nmpc_tpu.scenarios import get  # noqa: E402
+from nmpc_tpu.scenarios.fleets import lidar_v4_fleet  # noqa: E402
 from nmpc_tpu.solver import gn  # noqa: E402
 
 
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    sc = get("lidar_v4")
-    base = sc.make()
-    R = sc.num_rays
-    angles = ray_angles(R, jnp.float32)
-    scan = np.full((R,), 3.5, np.float32)
-    scan[1] = 0.9
-    scan[2] = 1.1
-    p_obs = obstacle_points(base.x0[:3], jnp.asarray(scan), angles)
-    base = dataclasses.replace(base, p_obs=p_obs,
-                               x0=base.x0.at[3:].set(jnp.asarray(scan)))
-    cfg = gn.GNConfig(Nc=sc.Nc, n_gn=10, n_outer=4, tol_con=1e-3)
-
     key = jax.random.PRNGKey(0)
-    noise = 0.05 * jax.random.normal(key, (B, 3), jnp.float32)
-    x0s = jnp.concatenate(
-        [base.x0[None, :3] + noise,
-         jnp.broadcast_to(base.x0[None, 3:], (B, R))], axis=1)
-    ob = dataclasses.replace(
-        base, x0=x0s, xref=jnp.broadcast_to(base.xref[None], (B, *base.xref.shape)))
+    ob, cfg = lidar_v4_fleet(B, key)
     f = jax.jit(functools.partial(gn.solve_batched, cfg=cfg))
     r = f(ob)
     _ = float(r.cost[0])
-    print(f"lidar_v4 (N={base.N}, Nc={sc.Nc}, {R} rays) B={B} "
-          f"backend={jax.default_backend()}")
+    print(f"lidar_v4 (N={ob.N}, Nc={cfg.Nc}, {ob.num_rays} rays) B={B} "
+          f"on {jax.devices()[0].device_kind}")
     ts = []
     for i in range(iters):
         key, sub = jax.random.split(key)
-        noise = 0.05 * jax.random.normal(sub, (B, 3), jnp.float32)
-        x0s = jnp.concatenate(
-            [base.x0[None, :3] + noise,
-             jnp.broadcast_to(base.x0[None, 3:], (B, R))], axis=1)
-        x0s.block_until_ready()
-        ob_i = dataclasses.replace(ob, x0=x0s)
+        ob_i = dataclasses.replace(ob, x0=lidar_v4_fleet(B, sub)[0].x0)
+        ob_i.x0.block_until_ready()
         t0 = time.perf_counter()
         r = f(ob_i)
         _ = float(r.cost[0])

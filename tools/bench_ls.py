@@ -1,4 +1,4 @@
-"""Compare megakernel line-search strategies on the bench shape (v5e).
+"""Compare the batched engine's line-search strategies on the bench shape.
 
 Measures throughput AND solution-quality statistics (convergence rate, mean
 cost, violation percentiles) for cascade vs adaptive line search, at the

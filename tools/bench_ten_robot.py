@@ -1,12 +1,12 @@
 """BASELINE.json config 5: ten-robot, thousands of randomized scenarios
-batched on one chip.
+batched on one device.
 
 The ten-robot joint NLP is the reference's largest (1,030 vars / 1,575 IPOPT
 rows, mpc_online_casadi_tb3_ten_multi_centralized_collision_avoidance.py:
-169-173,270-361) and the megakernel's near-VMEM-gate shape (estimate
-~15.96 MiB of the 16 MiB core budget). This bench solves B randomized
-ten-robot scenarios (jittered line-formation starts) per batch and reports
-solves/s/chip. Synchronous timing (see bench.py).
+169-173,270-361). This bench solves B randomized ten-robot scenarios
+(jittered line-formation starts) per batch and reports solves/s on the
+route solver.alilqr_batched.choose_route picks. Synchronous timing (see
+bench.py).
 
 Usage: python tools/bench_ten_robot.py [B] [N]
 """
@@ -26,13 +26,11 @@ def main():
     from nmpc_tpu.parallel.batch import batch_ocp
     from nmpc_tpu.scenarios import get
     from nmpc_tpu.solver.alilqr import ALILQRConfig
-    from nmpc_tpu.solver.alilqr_batched import solve_batched
-    from nmpc_tpu.ops.megasolve_pallas import mega_fits
+    from nmpc_tpu.solver.alilqr_batched import choose_route, solve_batched
 
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     base = get("ten_robot").make() if len(sys.argv) <= 2 else \
         get("ten_robot").make(N=int(sys.argv[2]))
-    assert mega_fits(base), "ten-robot shape must ride the megakernel"
     cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
 
     key = jax.random.PRNGKey(0)
@@ -55,7 +53,8 @@ def main():
         r = run(ob_i)
         r.cost.block_until_ready()
         times.append(time.perf_counter() - t0)
-    print(f"ten-robot N={base.N} B={B}: {B / min(times):.1f} solves/s/chip "
+    print(f"ten-robot N={base.N} B={B}: {B / min(times):.1f} solves/s on "
+          f"{jax.devices()[0].device_kind}, route {choose_route(ob, cfg)} "
           f"({min(times)*1e3:.1f} ms/batch)")
 
 

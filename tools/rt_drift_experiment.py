@@ -1,4 +1,4 @@
-"""Reproduce + diagnose the rt-mode dual drift (STATUS.md known gap):
+"""Reproduce + diagnose the rt-mode dual drift (a known gap):
 warm-started reduced-iteration AL solves lose feasibility on tight-collision
 configs. Runs on CPU. Usage: python tools/rt_drift_experiment.py
 """
