@@ -11,21 +11,28 @@ device.
 Precision: float32 throughout, with every matmul in true float32
 (`jax_default_matmul_precision="float32"`, set by the package) — no TF32.
 
-Tolerances of the comparisons (each printed with its result): route
-against route, and GPU against CPU, element by element —
-  * cost: |dcost| / (1 + |cost|) <= 5e-3 for at least 99% of the elements;
-  * controls: |dU| <= 5e-3 (the per-element bound of
-    tests/test_batched_solver.py) for at least 60% of them;
-  * converged shares within 1 percentage point.
-Sums run in another order on each backend and route, and a near-tie
-between two line-search candidates then sends an element down another
-path; at the bench's loose stopping rules (tol_con=1e-3, 6x12 iterations)
-the two paths stop at different points of a flat valley of the merit.
-Measured on an H100 (XLA route, GPU against CPU, first 256 elements):
-six robots — every cost within 1.6e-5 relative, 89.8% within 5e-3 on U
-(max 1.8e-1); ten robots N=20 — every cost within 1.8e-3, 72.7% within
-5e-3 on U (max 2.6e-2). So the cost is the tight per-element check and U
-the loose one.
+Comparisons, element by element, of a route against another, the GPU
+against the CPU backend, or a sharded solve against an unsharded one. Each
+stands beside a floor: the XLA route on the GPU against itself with every
+start moved by one float32 ulp, over the same elements. Near-ties between
+line-search candidates make some elements answer a rounding-sized change by
+taking another path and stopping elsewhere in one flat valley of the merit
+(the float64 cost along the segment between two such answers never rises
+above its ends), so two correct solves agree on U only about as often as
+the floor does; tools/route_agreement.py measures this and PERF.md holds
+its readings. A comparison passes when
+  * every element's cost agrees within 5e-3 relative (|dcost| / (1+|cost|)),
+    or within twice the floor's largest gap if that is more: 1.7x the
+    largest gap between a stop at the bench's rules and a tight stop
+    (2.9e-3), 2.7x the largest disagreement read (1.9e-3);
+  * its share of elements with max |dU| <= 5e-3 (the per-element bound of
+    tests/test_batched_solver.py) is at most 10 points (or 3 binomial
+    standard deviations, if more) below the floor's share: the largest
+    shortfall read was 5.5 points;
+  * the converged shares differ by at most 1 point (or 3 standard
+    deviations, if more).
+The GN fleet against the CPU backend is judged on cost and convergence
+only; `gn_fleet` says why.
 """
 
 from __future__ import annotations
@@ -53,9 +60,8 @@ from nmpc_tpu.solver.alilqr import ALILQRConfig, solve
 from nmpc_tpu.utils.compile_cache import setup_compile_cache
 
 U_ATOL = 5e-3
-U_SHARE_MIN = 0.60
+U_SHARE_MARGIN = 0.10
 COST_RTOL = 5e-3
-COST_SHARE_MIN = 0.99
 CONV_TOL = 0.01
 N_TIMED = 5
 FLEET_CFG = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
@@ -70,6 +76,15 @@ def gpu_routes(ocp_b, cfg):
     """The batched engine's routes for this problem on the GPU: the XLA
     reference, and the kernel where the route rule selects it."""
     return ("xla",) + (("triton",) if ab.choose_route(ocp_b, cfg) == "triton" else ())
+
+
+def on_route(route, cfg):
+    return jax.jit(functools.partial(ab._solve_batched, warm=None, cfg=cfg, route=route))
+
+
+def nudge(ob):
+    """Every start moved by one float32 ulp."""
+    return dataclasses.replace(ob, x0=jnp.nextafter(ob.x0, jnp.inf))
 
 
 # ---------------------------------------------------------------- phase 0
@@ -102,16 +117,18 @@ def fleet_batch(name: str, N: int, B: int, key) -> object:
     return base, batch_ocp(base, base.x0[None] + noise)
 
 
-def time_fleet(run, ob, base, key, n=N_TIMED):
-    """Synchronous timing of n batches with fresh starts; returns seconds."""
+def time_fleet(run, ob, base, key, n=N_TIMED, place=lambda o: o):
+    """Synchronous timing of n batches with fresh starts, each laid out by
+    `place` before its clock starts; returns seconds."""
     ts = []
     B = ob.x0.shape[0]
     for _ in range(n):
         key, sub = jax.random.split(key)
         x0s = base.x0[None] + 0.1 * jax.random.normal(sub, (B, base.nx), base.x0.dtype)
-        x0s.block_until_ready()
+        obi = place(dataclasses.replace(ob, x0=x0s))
+        jax.block_until_ready(obi)
         t0 = time.perf_counter()
-        run(dataclasses.replace(ob, x0=x0s)).cost.block_until_ready()
+        run(obi).cost.block_until_ready()
         ts.append(time.perf_counter() - t0)
     return np.asarray(ts)
 
@@ -123,26 +140,39 @@ def stats_line(res) -> str:
     return f"converged {conv:.4f}, viol p99 {p99:.3e}, mean inner iters {it:.2f}"
 
 
-def compare(tag: str, a, b, n=None):
-    """Element-wise agreement of two SolveResults (first n elements); see
-    the module docstring for the tolerances."""
+def agreement(a, b, n=None) -> dict:
+    """Per-element agreement of two SolveResults over their first n elements."""
     Ua, Ub = np.asarray(a.U)[:n], np.asarray(b.U)[:n]
     err = np.max(np.abs(Ua - Ub).reshape(Ua.shape[0], -1), axis=1)
-    u_share = float(np.mean(err <= U_ATOL))
     ca, cb = np.asarray(a.cost)[:n], np.asarray(b.cost)[:n]
     rel = np.abs(ca - cb) / (1.0 + np.abs(cb))
-    c_share = float(np.mean(rel <= COST_RTOL))
-    va = float(np.mean(np.asarray(a.converged)[:n]))
-    vb = float(np.mean(np.asarray(b.converged)[:n]))
-    ok = (u_share >= U_SHARE_MIN and c_share >= COST_SHARE_MIN
-          and abs(va - vb) <= CONV_TOL)
-    log(f"    {tag} [{Ua.shape[0]} elements, f32, matmul f32]: "
-        f"{c_share * 100:.2f}% with |dcost|/(1+|cost|) <= {COST_RTOL} "
-        f"(need {COST_SHARE_MIN * 100:.0f}%, max {rel.max():.2e}); "
-        f"{u_share * 100:.2f}% with |dU| <= {U_ATOL} (need "
-        f"{U_SHARE_MIN * 100:.0f}%, median {np.median(err):.2e}, max "
-        f"{err.max():.2e}); converged {va:.4f} vs {vb:.4f} (tol {CONV_TOL}) "
-        f"-> {'ok' if ok else 'FAIL'}")
+    return dict(n=len(err), u_share=float(np.mean(err <= U_ATOL)),
+                u_median=float(np.median(err)), u_max=float(err.max()),
+                cost_max=float(rel.max()),
+                conv=(float(np.mean(np.asarray(a.converged)[:n])),
+                      float(np.mean(np.asarray(b.converged)[:n]))))
+
+
+def compare(tag: str, a, b, floor: dict, n=None, judge_u: bool = True):
+    """a against b over their first n elements, beside the floor's
+    agreement over the same elements; see the module docstring. With
+    judge_u False the U share is printed but not judged."""
+    g = agreement(a, b, n)
+    p = floor["u_share"]
+    margin = max(U_SHARE_MARGIN, 3.0 * np.sqrt(p * (1.0 - p) / g["n"]))
+    q = 0.5 * (g["conv"][0] + g["conv"][1])
+    dconv = abs(g["conv"][0] - g["conv"][1])
+    cost_tol = max(COST_RTOL, 2.0 * floor["cost_max"])
+    ok = ((g["u_share"] >= p - margin or not judge_u) and g["cost_max"] <= cost_tol
+          and dconv <= max(CONV_TOL, 3.0 * np.sqrt(q * (1.0 - q) / g["n"])))
+    log(f"    {tag} [{g['n']} elements, f32, matmul f32]: "
+        f"{g['u_share'] * 100:.2f}% with |dU| <= {U_ATOL} (floor "
+        f"{p * 100:.2f}%, "
+        f"{f'need >= {(p - margin) * 100:.2f}%' if judge_u else 'not judged'}; median "
+        f"{g['u_median']:.2e}, max {g['u_max']:.2e}); cost max rel "
+        f"{g['cost_max']:.2e} (need <= {cost_tol:.2e}; floor "
+        f"{floor['cost_max']:.2e}); converged {g['conv'][0]:.4f} vs "
+        f"{g['conv'][1]:.4f} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"comparison failed: {tag}")
 
@@ -153,7 +183,7 @@ def fleet_phase(tag: str, name: str, N: int, B: int, cfg: ALILQRConfig,
     log(f"[{tag}] {name} N={N} B={B} {cfg}")
     results = {}
     for r in gpu_routes(ob, cfg):
-        run = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route=r))
+        run = on_route(r, cfg)
         t0 = time.perf_counter()
         res = run(ob)
         res.cost.block_until_ready()
@@ -168,17 +198,20 @@ def fleet_phase(tag: str, name: str, N: int, B: int, cfg: ALILQRConfig,
             raise SystemExit(f"route {r}: non-finite controls")
         results[r] = res
     ref = results["xla"]
+    nudged = on_route("xla", cfg)(nudge(ob))
     for r, res in results.items():
         if r != "xla":
-            compare(f"route {r} vs xla (GPU, all elements)", res, ref)
+            compare(f"route {r} vs xla (GPU, all elements)", res, ref,
+                    agreement(ref, nudged))
     if not n_cpu:
         return results
     # the XLA engine on the CPU backend, same process, first n_cpu elements
     cpu = jax.devices("cpu")[0]
     ob_cpu = jax.device_put(
         dataclasses.replace(ob, x0=ob.x0[:n_cpu], xref=ob.xref[:n_cpu]), cpu)
-    res_cpu = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="xla"))(ob_cpu)
-    compare(f"xla GPU vs xla CPU (first {n_cpu})", ref, res_cpu, n_cpu)
+    res_cpu = on_route("xla", cfg)(ob_cpu)
+    compare(f"xla GPU vs xla CPU (first {n_cpu})", ref, res_cpu,
+            agreement(ref, nudged, n_cpu), n_cpu)
     return results
 
 
@@ -191,7 +224,7 @@ def long_horizon_phase(name: str):
     ocp = get(name).make()
     cfg = ALILQRConfig(n_outer=12, n_inner=20, tol_con=1e-4)
     log(f"[3] {name} N={ocp.N} B=1 {cfg}")
-    fns = {f"solve_one[{r}]": functools.partial(ab.solve_one, cfg=cfg, route=r)
+    fns = {f"solve_one[{r}]": functools.partial(ab._solve_one, cfg=cfg, route=r)
            for r in gpu_routes(ocp, cfg)}
     fns["solve (per-scenario)"] = functools.partial(solve, cfg=cfg)
     out = {}
@@ -303,7 +336,17 @@ def _assert_loop(tag, rc, e0, e1, clr, dmin, tol=None):
         raise SystemExit(f"entry point failed: {tag}")
 
 
-def gn_fleet(B: int = 1024):
+def gn_fleet(B: int = 1024, n_cpu: int = 128):
+    """The GN fleet on the card, and its first n_cpu elements on the CPU
+    backend. `converged` is the AL loop's own flag: the unclamped iterate
+    met tol_con. The returned trajectories are clamped to the actuator box
+    and re-rolled; they must be feasible to tol_con. Against the CPU the
+    costs and the converged share are judged, not U: the backends' dense
+    Cholesky solves of the GN normal equations differ by more than a
+    one-ulp nudge of the start does, and GN stops at its iteration caps,
+    so U lands elsewhere in the same flat valley (on an H100: 68.75% within
+    5e-3 against a nudge floor of 95.31%, the float64 cost along each
+    segment rising at most 3e-6 above its ends; PERF.md)."""
     from nmpc_tpu.solver import gn
 
     ob, cfg = lidar_v4_fleet(B, jax.random.PRNGKey(5))
@@ -311,16 +354,20 @@ def gn_fleet(B: int = 1024):
     t0 = time.perf_counter()
     r = f(ob)
     r.U.block_until_ready()
+    first = time.perf_counter() - t0
     conv = float(np.mean(np.asarray(r.converged)))
     p99 = float(np.percentile(np.asarray(r.viol), 99))
-    # the returned (clamped, re-rolled) trajectories must be feasible to
-    # the solver's tolerance; `converged` is the AL loop's own flag
     ok = np.all(np.isfinite(np.asarray(r.U))) and p99 <= cfg.tol_con
     log(f"  GN fleet lidar_v4 N={ob.N} Nc={cfg.Nc} B={B}: first call "
-        f"{time.perf_counter() - t0:.1f} s, AL converged {conv:.4f}, viol p99 "
+        f"{first:.1f} s, AL converged {conv:.4f}, returned viol p99 "
         f"{p99:.2e} (need <= {cfg.tol_con}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("GN fleet failed")
+    cpu = jax.devices("cpu")[0]
+    ob_cpu = jax.device_put(
+        dataclasses.replace(ob, x0=ob.x0[:n_cpu], xref=ob.xref[:n_cpu]), cpu)
+    compare(f"GN GPU vs GN CPU (first {n_cpu})", r, f(ob_cpu),
+            agreement(r, f(nudge(ob)), n_cpu), n_cpu, judge_u=False)
 
 
 def admm_fleet(B: int = 64):
@@ -348,7 +395,7 @@ def four_cards_phase(devs, fleet_per_card=8192, gn_per_card=256,
     single-program form."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
-    from nmpc_tpu.parallel.batch import shard_ocp_batch
+    from nmpc_tpu.parallel.batch import shard_ocp_batch, solve_batched_sharded
     from nmpc_tpu.parallel.consensus import consensus_solve, consensus_solve_sharded
     from nmpc_tpu.parallel.decentralized import decentralized_step, decentralized_step_sharded, robot_template
     from nmpc_tpu.solver import gn
@@ -358,26 +405,32 @@ def four_cards_phase(devs, fleet_per_card=8192, gn_per_card=256,
     mesh = Mesh(np.array(devs[:nd]), ("data",))
     rmesh = Mesh(np.array(devs[:nd]), ("robots",))
 
-    # -- six-robot N=10 fleet, B = 4 x 8192, sharded vs unsharded
+    # -- fleets of B = 4 x 8192 split over the cards by shard_map, against
+    # the unsharded solve on one card: six robots (XLA route) and two
+    # robots (kernel route, which then runs once per card)
     B = nd * fleet_per_card
-    base, ob = fleet_batch("six_robot_antipodal", 10, B, jax.random.PRNGKey(0))
-    run = jax.jit(functools.partial(ab.solve_batched, cfg=FLEET_CFG))
-    ob_sh = shard_ocp_batch(ob, mesh)
-    t0 = time.perf_counter()
-    r_sh = run(ob_sh)
-    r_sh.cost.block_until_ready()
-    log(f"[4c] six_robot N=10 B={B} sharded over {nd} cards: first call "
-        f"{time.perf_counter() - t0:.1f} s; {stats_line(r_sh)}")
-    t_sh = time_fleet(run, ob_sh, base, jax.random.PRNGKey(1), n=3)
-    r_un = run(ob)
-    t_un = time_fleet(run, ob, base, jax.random.PRNGKey(1), n=3)
-    log(f"  {nd} cards: median {np.median(t_sh) * 1e3:.2f} ms "
-        f"[{t_sh.min() * 1e3:.2f}, {t_sh.max() * 1e3:.2f}] -> "
-        f"{B / np.median(t_sh):.1f} solves/s; 1 card: median "
-        f"{np.median(t_un) * 1e3:.2f} ms [{t_un.min() * 1e3:.2f}, "
-        f"{t_un.max() * 1e3:.2f}] -> {B / np.median(t_un):.1f} solves/s; "
-        f"scaling {np.median(t_un) / np.median(t_sh):.2f}x")
-    compare("sharded vs unsharded fleet", r_sh, r_un)
+    for name in ("six_robot_antipodal", "two_robot_swap"):
+        base, ob = fleet_batch(name, 10, B, jax.random.PRNGKey(0))
+        route = ab.choose_route(ob, FLEET_CFG)
+        place = functools.partial(shard_ocp_batch, mesh=mesh)
+        run_sh = jax.jit(functools.partial(solve_batched_sharded, mesh=mesh, cfg=FLEET_CFG))
+        run_un = jax.jit(functools.partial(ab.solve_batched, cfg=FLEET_CFG))
+        t0 = time.perf_counter()
+        r_sh = run_sh(place(ob))
+        r_sh.cost.block_until_ready()
+        log(f"[4c] {name} N=10 B={B} on the {route} route, split over {nd} "
+            f"cards: first call {time.perf_counter() - t0:.1f} s; {stats_line(r_sh)}")
+        t_sh = time_fleet(run_sh, ob, base, jax.random.PRNGKey(1), n=3, place=place)
+        r_un = run_un(ob)
+        t_un = time_fleet(run_un, ob, base, jax.random.PRNGKey(1), n=3)
+        log(f"  {nd} cards: median {np.median(t_sh) * 1e3:.2f} ms "
+            f"[{t_sh.min() * 1e3:.2f}, {t_sh.max() * 1e3:.2f}] -> "
+            f"{B / np.median(t_sh):.1f} solves/s; 1 card: median "
+            f"{np.median(t_un) * 1e3:.2f} ms [{t_un.min() * 1e3:.2f}, "
+            f"{t_un.max() * 1e3:.2f}] -> {B / np.median(t_un):.1f} solves/s; "
+            f"scaling {np.median(t_un) / np.median(t_sh):.2f}x")
+        compare(f"{name} sharded vs unsharded fleet", r_sh, r_un,
+                agreement(r_un, run_un(nudge(ob))))
 
     # -- robot-sharded consensus solve vs the single-program form
     m, N = 2 * nd, 20
@@ -418,7 +471,7 @@ def four_cards_phase(devs, fleet_per_card=8192, gn_per_card=256,
     ob_l, gcfg = lidar_v4_fleet(nd * gn_per_card, jax.random.PRNGKey(5))
     gfn = jax.jit(functools.partial(gn.solve_batched, cfg=gcfg))
     g_sh, g_un = gfn(shard_ocp_batch(ob_l, mesh)), gfn(ob_l)
-    compare("GN fleet sharded vs unsharded", g_sh, g_un)
+    compare("GN fleet sharded vs unsharded", g_sh, g_un, agreement(g_un, gfn(nudge(ob_l))))
     fleet, args = ltv_qp_fleet(nd * admm_per_card, jax.random.PRNGKey(6))
     shard = NamedSharding(mesh, PartitionSpec("data"))
     f = jax.jit(fleet)

@@ -5,8 +5,10 @@ An OCP pytree has static shape metadata and traced numeric leaves; a *batch*
 is the same pytree with a leading [B] axis on the per-scenario leaves
 (x0, xref) and broadcast scalars elsewhere. `batched_solve` vmaps the AL-iLQR
 engine over that axis; `shard_ocp_batch` lays the batch across the mesh's
-'data' axis so pjit runs each shard on its own chip with zero collectives in
-the hot path (metrics reductions are the only cross-chip traffic).
+'data' axis so jit runs each shard on its own device with zero collectives
+in the hot path. `solve_batched_sharded` runs the batch-native engine on
+each device's shard inside `shard_map`, so its kernel route, which XLA's
+partitioner does not split, runs once per shard.
 """
 
 from __future__ import annotations
@@ -57,6 +59,29 @@ def batched_solve(ocp_batch: OCP, cfg: ALILQRConfig = ALILQRConfig(), warm=None)
     if warm is None:
         return jax.vmap(lambda o: fn(o), in_axes=(axes,))(ocp_batch)
     return jax.vmap(lambda o, w: fn(o, w), in_axes=(axes, 0))(ocp_batch, warm)
+
+
+def solve_batched_sharded(ocp_batch: OCP, mesh: Mesh, cfg: ALILQRConfig = ALILQRConfig(),
+                          warm=None, axis: str = "data"):
+    """The batch-native engine (solver.alilqr_batched.solve_batched) with
+    the batch split over the mesh axis: each device solves its own shard on
+    the route `choose_route` picks, and stops when its own elements are
+    done. An element's result does not depend on the rest of the batch, so
+    it is the unsharded solve's. B must divide by the axis size; call
+    inside jax.jit."""
+    from nmpc_tpu.solver.alilqr_batched import _batch_fields, solve_batched
+
+    bf = _batch_fields(ocp_batch)
+    specs = dataclasses.replace(ocp_batch, **{
+        f.name: PartitionSpec(axis) if f.name in bf else PartitionSpec()
+        for f in dataclasses.fields(ocp_batch) if f.name not in OCP_META})
+    fn = functools.partial(solve_batched, cfg=cfg)
+    if warm is None:
+        return jax.shard_map(fn, mesh=mesh, in_specs=(specs,),
+                             out_specs=PartitionSpec(axis), check_vma=False)(ocp_batch)
+    return jax.shard_map(lambda o, w: fn(o, w), mesh=mesh,
+                         in_specs=(specs, PartitionSpec(axis)),
+                         out_specs=PartitionSpec(axis), check_vma=False)(ocp_batch, warm)
 
 
 def shard_ocp_batch(ocp_batch: OCP, mesh: Mesh, axis: str = "data") -> OCP:

@@ -19,6 +19,12 @@ in the kernel's class (`supports`, sequential sweep, at most
 KERNEL_MAX_ROBOTS robots) and the default backend is the GPU; otherwise it
 runs in plain XLA (`_inner_xla`), which is also the reference every kernel
 is compared against. The AL outer loop is XLA on both routes.
+
+A fleet split over several devices goes through
+`parallel.batch.solve_batched_sharded`, which runs this engine per shard
+inside `shard_map`. Under a plain `jit` of batch-sharded inputs XLA's SPMD
+partitioner does not split the kernel's custom call, so the kernel route
+would run replicated on every device.
 """
 
 from __future__ import annotations
@@ -54,21 +60,25 @@ ROUTES = ("xla", "triton")
 
 # Largest team the kernel route takes by default. Measured on an H100
 # (PERF.md): the kernel beats the XLA route at every shape it ran — 8.8x at
-# one robot N=200 B=1, 15.7x at two robots B=4096, 7.1x at six robots
-# B=32768 — but its compile time grows steeply with the team (5 s at one
-# robot, 17 s at two, 190 s at six, over 8 min at ten, against 6-13 s for
-# the XLA route), and XLA's SPMD partitioner does not split the kernel's
-# custom call across devices, so a sharded fleet would run it replicated.
+# one robot N=200 B=1, 15.7x at two robots B=4096, 25x on a decentralized
+# step and 28x on a consensus solve (six one-robot subproblems, N=35), 7.1x
+# at six robots B=32768 — but its compile time grows steeply with the team
+# (5 s at one robot, 17 s at two, 190 s at six, over 8 min at ten, against
+# 6-15 s for the XLA route).
 KERNEL_MAX_ROBOTS = 2
+
+
+def _kernel_class(ocp_b: OCP, cfg: ALILQRConfig) -> bool:
+    """The problem is one the kernel solves: `supports`, with the
+    sequential sweep (the kernel has no associative scan)."""
+    return supports(ocp_b) and resolve_sweep(cfg, ocp_b.N) == "seq"
 
 
 def choose_route(ocp_b: OCP, cfg: ALILQRConfig) -> str:
     """The inner-solve route `solve_batched` takes: the Triton kernel for
-    its problem class (`supports`, with the sequential sweep — the kernel
-    has no associative scan) with at most KERNEL_MAX_ROBOTS robots, on the
-    GPU; XLA otherwise."""
-    if (supports(ocp_b) and ocp_b.m <= KERNEL_MAX_ROBOTS
-            and resolve_sweep(cfg, ocp_b.N) == "seq"
+    its problem class (`_kernel_class`) with at most KERNEL_MAX_ROBOTS
+    robots, on the GPU; XLA otherwise."""
+    if (_kernel_class(ocp_b, cfg) and ocp_b.m <= KERNEL_MAX_ROBOTS
             and jax.default_backend() == "gpu"):
         return "triton"
     return "xla"
@@ -272,16 +282,19 @@ def solve_one(
     ocp: OCP,
     warm: WarmStart | None = None,
     cfg: ALILQRConfig = ALILQRConfig(),
-    route: str | None = None,
 ) -> SolveResult:
     """Single-scenario solve through the batch-native engine at B=1: the
     engine of the closed-loop MPC drivers when they ask for the batched
     engine's line search (SURVEY.md §6's per-step budget T). Interface
     matches solver.alilqr.solve (unbatched OCP/WarmStart in, unbatched
     SolveResult out)."""
+    return _solve_one(ocp, warm, cfg, choose_route(ocp, cfg))
+
+
+def _solve_one(ocp, warm=None, cfg=ALILQRConfig(), route="xla"):
     ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
     warm_b = None if warm is None else jax.tree.map(lambda a: jnp.asarray(a)[None], warm)
-    res = solve_batched(ocp_b, warm_b, cfg, route)
+    res = _solve_batched(ocp_b, warm_b, cfg, route)
     return jax.tree.map(lambda a: a[0], res)
 
 
@@ -289,11 +302,22 @@ def solve_batched(
     ocp_b: OCP,
     warm: WarmStart | None = None,
     cfg: ALILQRConfig = ALILQRConfig(),
-    route: str | None = None,
 ) -> SolveResult:
     """Solve a batch of OCPs (batch axis on x0/xref, and on mov_obs when it
-    is [B, N, n_mov, 2]). Jit-able; cfg static. `route` (one of ROUTES)
-    overrides the rule of `choose_route`, for comparisons."""
+    is [B, N, n_mov, 2]) on the route of `choose_route`. Jit-able; cfg
+    static."""
+    return _solve_batched(ocp_b, warm, cfg, choose_route(ocp_b, cfg))
+
+
+def _solve_batched(ocp_b, warm=None, cfg=ALILQRConfig(), route="xla"):
+    """`solve_batched` on a given route (one of ROUTES); comparisons of the
+    routes call this. The kernel route refuses problems outside its class,
+    which it would otherwise solve wrongly without an error."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} not in {ROUTES}")
+    if route == "triton" and not _kernel_class(ocp_b, cfg):
+        raise ValueError("the kernel route solves only the `supports` problem "
+                         "class with the sequential sweep")
     B = ocp_b.x0.shape[0]
     N, nu, nc = ocp_b.N, ocp_b.nu, ocp_b.n_con
     dtype = ocp_b.x0.dtype
@@ -309,7 +333,7 @@ def solve_batched(
         )
     U, lam, mu = warm.U, warm.lam, warm.mu
     X = _rollout_b(ocp_b, U)
-    inner = _inner_triton if (route or choose_route(ocp_b, cfg)) == "triton" else _inner_xla
+    inner = _inner_triton if route == "triton" else _inner_xla
 
     def outer_cond(c):
         it, done = c[4], c[7]

@@ -65,7 +65,7 @@ def test_xla_engine_matches_per_scenario_solve(name, N):
     [B, ...] arrays: costs, controls and iteration counts agree."""
     cfg = ALILQRConfig(n_outer=3, n_inner=6, tol_con=1e-3) if name == "ten_robot" else CFG
     ob = _batch(name, N)
-    rb = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="xla"))(ob)
+    rb = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="xla"))(ob)
     rv = _per_scenario(ob, cfg)
     np.testing.assert_allclose(np.asarray(rb.cost), np.asarray(rv.cost), rtol=1e-4)
     np.testing.assert_allclose(np.asarray(rb.U), np.asarray(rv.U), atol=5e-3)
@@ -80,7 +80,7 @@ def test_element_result_independent_of_batch(ls):
     are frozen, not re-iterated)."""
     cfg = dataclasses.replace(CFG, ls=ls)
     ob = _batch("two_robot_swap", 10, B=4, spread=0.3, seed=4)
-    run = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="xla"))
+    run = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="xla"))
     rb = run(ob)
     for e in range(4):
         r1 = run(dataclasses.replace(ob, x0=ob.x0[e:e + 1], xref=ob.xref[e:e + 1]))
@@ -145,11 +145,46 @@ def test_solve_batched_triton_route_interpret(monkeypatch):
                         functools.partial(ab._inner_triton, interpret=True))
     cfg = dataclasses.replace(CFG, ls="adaptive")
     ob = _batch("two_robot_swap", 8, B=3)
-    rt = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="triton"))(ob)
-    rx = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="xla"))(ob)
+    rt = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="triton"))(ob)
+    rx = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="xla"))(ob)
     np.testing.assert_allclose(np.asarray(rt.cost), np.asarray(rx.cost), rtol=1e-4)
     np.testing.assert_allclose(np.asarray(rt.U), np.asarray(rx.U), atol=5e-3)
     assert bool(jnp.all(rt.converged))
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("lidar_v4", CFG), ("two_robot_swap", dataclasses.replace(CFG, sweep="scan")),
+])
+def test_kernel_route_refuses_problems_outside_its_class(name, cfg):
+    """Forcing the kernel route onto a problem it does not solve (LiDAR
+    rays, the associative-scan sweep) raises instead of solving wrongly."""
+    with pytest.raises(ValueError, match="kernel route"):
+        ab._solve_batched(get(name).make(N=5), None, cfg, "triton")
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_solve_batched_sharded_matches_unsharded(monkeypatch, kernel):
+    """The fleet split over 4 devices by shard_map solves every element as
+    the unsharded engine does, on the XLA route and on the kernel route
+    (interpret mode), which then runs once per shard."""
+    from jax.sharding import Mesh
+
+    from nmpc_tpu.parallel.batch import solve_batched_sharded
+
+    if kernel:
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(ab, "_inner_triton",
+                            functools.partial(ab._inner_triton, interpret=True))
+    cfg = dataclasses.replace(CFG, ls="adaptive")
+    ob = _batch("two_robot_swap", 8, B=8, spread=0.2)
+    assert ab.choose_route(ob, cfg) == ("triton" if kernel else "xla")
+    mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+    rs = jax.jit(functools.partial(solve_batched_sharded, mesh=mesh, cfg=cfg))(ob)
+    ru = jax.jit(functools.partial(ab.solve_batched, cfg=cfg))(ob)
+    assert rs.U.sharding.spec[0] == "data"
+    np.testing.assert_allclose(np.asarray(rs.U), np.asarray(ru.U), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(rs.inner_iters), np.asarray(ru.inner_iters))
+    np.testing.assert_array_equal(np.asarray(rs.converged), np.asarray(ru.converged))
 
 
 def test_supports_gate():
@@ -209,8 +244,8 @@ def test_triton_route_matches_xla_on_gpu(gpu, name, N, ls):
     """The compiled kernel on the card against the XLA route on the card."""
     cfg = dataclasses.replace(CFG, ls=ls)
     ob = _batch(name, N, B=64)
-    rt = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="triton"))(ob)
-    rx = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route="xla"))(ob)
+    rt = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="triton"))(ob)
+    rx = jax.jit(functools.partial(ab._solve_batched, cfg=cfg, route="xla"))(ob)
     err = np.max(np.abs(np.asarray(rt.U) - np.asarray(rx.U)).reshape(64, -1), axis=1)
     assert np.mean(err <= 5e-3) >= 0.95
     assert abs(float(jnp.mean(rt.converged)) - float(jnp.mean(rx.converged))) <= 0.05

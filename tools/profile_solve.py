@@ -70,7 +70,7 @@ def main():
     print(f"line search (8 alpha): p50 {st['p50_ms']:.2f} ms")
 
     for r in ab.ROUTES:
-        run = jax.jit(functools.partial(ab.solve_batched, cfg=cfg, route=r))
+        run = jax.jit(functools.partial(ab._solve_batched, warm=None, cfg=cfg, route=r))
         _, st = time_fn(lambda: run(ob), iters=5)
         print(f"full solve [{r:6s}]  : p50 {st['p50_ms']:.2f} ms "
               f"({B / (st['p50_ms'] / 1e3):.0f} solves/s)")
